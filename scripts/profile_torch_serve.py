@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Where the time goes when the PyTorch/CUDA port serves tinyllama-1.1b.
+
+    PYTHONPATH=src python3 scripts/profile_torch_serve.py [--layers N]
+
+Needs one CUDA card.  Serves the full-width model (random weights from a
+seed, batch 8 x prompt 1024) and traces one prefill and a window of decode
+steps with torch.profiler.  Prints one JSON line per phase: the wall time,
+the time the device was busy, its idle share, the number of kernels, and the
+kernels that took most of the device time.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import pad_cache_to, resolve_device, sample
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.common import get_model
+
+BATCH, PROMPT_LEN, DECODE_STEPS = 8, 1024, 16
+
+
+def traced(fn):
+    """Run fn under the profiler; return (wall ms, kernel events)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return wall_ms, kernels
+
+
+def summarize(phase, wall_ms, kernels, per=1, top=8, **extra):
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    if not kernels or busy_ms == 0:
+        raise RuntimeError("the profiler recorded no device time")
+    print(json.dumps({
+        "phase": phase, **extra,
+        "wall_ms": wall_ms / per, "device_busy_ms": busy_ms / per,
+        "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+        "kernels": len(kernels) / per,
+        "top_kernels": [{"name": n[:90], "ms": ms / per, "share_of_busy": ms / busy_ms}
+                        for n, ms in by_name.most_common(top)],
+    }), flush=True)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the full 22 layers)")
+    args = ap.parse_args()
+    device = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    cfg = get_config("tinyllama-1.1b")
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
+    model = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(cfg, gen, device)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                            generator=gen, device=device)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    state = {}
+
+    def run_prefill():
+        logits, cache = prefill(params, {"tokens": prompts})
+        state["cache"] = pad_cache_to(cache, PROMPT_LEN + 2 * DECODE_STEPS + 2)
+        state["tok"] = sample(logits, 0.0, None)
+
+    def run_decode():
+        for _ in range(DECODE_STEPS):
+            logits, state["cache"] = decode(params, state["cache"],
+                                            {"tokens": state["tok"]})
+            state["tok"] = sample(logits, 0.0, None)
+
+    run_prefill()           # warm-up: library handles, the kernel's build
+    run_decode()
+    print(json.dumps({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+                      "layers": cfg.num_layers, "batch": BATCH,
+                      "prompt_len": PROMPT_LEN}), flush=True)
+    wall, kernels = traced(run_prefill)
+    summarize("prefill", wall, kernels)
+    wall, kernels = traced(run_decode)
+    summarize("decode", wall, kernels, per=DECODE_STEPS, steps=DECODE_STEPS)
+
+
+if __name__ == "__main__":
+    main()

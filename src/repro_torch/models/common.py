@@ -1,0 +1,185 @@
+"""Shared model configuration and registry for the port.
+
+Every model family is a class of static methods over plain dictionaries of
+tensors:
+
+* ``init(cfg, generator, device="cuda")``    -> params (a list of per-layer dicts)
+* ``prefill(cfg, params, batch)``            -> (logits, cache)
+* ``decode_step(cfg, params, cache, batch)`` -> (logits, cache)
+
+``ModelConfig`` has the fields and defaults of the JAX package's, with torch
+dtypes; ``attn_impl`` is ``"kernel"`` (the hand-written CUDA kernel wherever
+it applies) or ``"dense"`` (full logits in torch ops).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+
+def resolve_dtype(dtype: Any) -> torch.dtype:
+    """A torch dtype from a torch dtype or its name (``"float32"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    resolved = getattr(torch, dtype, None) if isinstance(dtype, str) else None
+    if not isinstance(resolved, torch.dtype):
+        raise ValueError(f"not a torch dtype: {dtype!r}")
+    return resolved
+
+
+def resolve_device(device: Any = "cuda") -> torch.device:
+    """The device to run on: ``cuda`` unless the caller names another.  A CUDA
+    device that is not there raises; nothing carries on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device 'cpu' (--device cpu) "
+            "to run on the CPU on purpose")
+    return device
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Superset config covering all model families."""
+
+    arch: str
+    family: str                       # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+
+    # -- attention ----------------------------------------------------------
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0        # stablelm partial rotary
+    mrope_sections: Optional[Tuple[int, int, int]] = None   # qwen2-vl M-RoPE
+    window: Optional[int] = None      # sliding-window attention (mixtral)
+    attn_logit_softcap: Optional[float] = None
+
+    # -- FFN ----------------------------------------------------------------
+    act: str = "swiglu"               # swiglu | relu2 | gelu
+    norm: str = "rms"                 # rms | ln
+    parallel_residual: bool = False
+
+    # -- embeddings ---------------------------------------------------------
+    tie_embeddings: bool = False
+    use_abs_pos: bool = False         # learned absolute positions (whisper dec)
+
+    # -- MoE ------------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    n_dense_layers: int = 0           # deepseek: first k layers use dense FFN
+    d_ff_dense: int = 0               # width of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_dispatch_groups: int = 16
+
+    # -- MLA (deepseek) -------------------------------------------------------
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # -- SSM (mamba2 / zamba2) ------------------------------------------------
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_groups: int = 1
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+
+    # -- hybrid (zamba2) --------------------------------------------------------
+    shared_attn_period: int = 0       # apply shared attn block every k layers
+
+    # -- enc-dec (whisper) ------------------------------------------------------
+    enc_layers: int = 0
+    dec_layers: int = 0
+    max_target_positions: int = 8192
+
+    # -- numerics ---------------------------------------------------------------
+    # torch dtypes; their names ("float32") are accepted and resolved
+    param_dtype: Any = torch.bfloat16
+    compute_dtype: Any = torch.bfloat16
+    # activation-checkpoint policy of the training path: none|full|dots
+    remat: str = "full"
+    # attention implementation: "kernel" (the CUDA flash-attention kernel for
+    # prefill; decode and the cases it does not cover run in torch ops) or
+    # "dense" (torch ops everywhere)
+    attn_impl: str = "kernel"
+    attn_row_parallel: bool = False
+    attn_q_block: int = 1024
+    attn_kv_block: int = 1024
+    # logits in fp32 for loss stability
+    logits_fp32: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "param_dtype", resolve_dtype(self.param_dtype))
+        object.__setattr__(self, "compute_dtype",
+                           resolve_dtype(self.compute_dtype))
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def d_inner(self) -> int:          # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+_REGISTRY: Dict[str, Any] = {}
+
+# families of the JAX package that the port does not have yet, and the slice
+# of the port that brings each
+UNPORTED_FAMILIES = {
+    "ssm": "the Mamba-2 serving slice (SSD scan kernel with state in and out)",
+    "hybrid": "the Zamba2 slice (after Mamba-2)",
+    "encdec": "the Whisper slice",
+    "moe": "the MoE slice (Mixtral, DeepSeek MLA)",
+    "vlm": "the Qwen2-VL slice (M-RoPE)",
+}
+
+
+def register(family: str):
+    def deco(cls):
+        _REGISTRY[family] = cls
+        return cls
+    return deco
+
+
+def get_model(cfg: ModelConfig):
+    """Return the model implementation class for ``cfg.family``."""
+    # import for side-effect registration
+    from repro_torch.models import transformer  # noqa: F401
+    if cfg.family in _REGISTRY:
+        return _REGISTRY[cfg.family]
+    if cfg.family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet: it comes with "
+            f"{UNPORTED_FAMILIES[cfg.family]}")
+    raise ValueError(f"unknown model family {cfg.family!r}; "
+                     f"have {sorted(_REGISTRY)}")
+
+
+def param_count(params) -> int:
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    children = params.values() if isinstance(params, dict) else params
+    return sum(param_count(c) for c in children)
