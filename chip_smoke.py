@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper card, `nvcc` and nothing else; no network.  It builds
-the port's kernels from the sources in this checkout, holds each against its
-plain PyTorch version on the card, serves tinyllama-1.1b at full width
-(random weights from a seed: batch 8 x prompt 1024, 64 generated tokens)
-through the port's prefill and decode steps, and checks the result.  Every
-phase prints one JSON line; any failure raises, so the exit code is not 0.
-The last line is `{"ok": true, "device": {...}}`.  Without a CUDA device it
-prints no result and exits with code 1.
+the port's two kernels (flash attention, the Mamba-2 SSD scan) from the
+sources in this checkout, holds each against its plain PyTorch version on the
+card, serves tinyllama-1.1b and mamba2-1.3b at full width (random weights from
+a seed: batch 8 x prompt 1024, 64 generated tokens) through the port's
+prefill and decode steps, and checks the results.  Every phase prints one
+JSON line; any failure raises, so the exit code is not 0.  The last line is
+`{"ok": true, "device": {...}}`.  Without a CUDA device it prints no result
+and exits with code 1.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -41,20 +43,38 @@ SWEEP_SHAPES = [
     (2, 4, 4, 150, 150, 80),      # stablelm-3b's head dim, ragged
 ]
 SWEEP_MASKS = [(True, None), (False, None), (True, 48)]
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # relative to max|plain|
+# relative to max|plain|, for attention's output and for the SSD scan's y and
+# final state alike
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
-# The main path: tinyllama-1.1b, batch 8 x prompt 1024, 64 generated tokens.
-ARCH = "tinyllama-1.1b"
+# (B, S, H, P, G, N, chunk) of the SSD scan: the sweep of the JAX package's
+# kernel tests (the fp32-pipe kernel in both types), then chunks 64, 128 (the
+# JAX kernel's default) and 256 (the model's) at mamba2-1.3b's P and N (the
+# tensor-core kernel in bf16), with groups and ragged last chunks.
+SSD_SHAPES = [
+    (1, 64, 2, 16, 1, 8, 32),
+    (2, 100, 4, 16, 2, 8, 32),    # ragged + groups
+    (1, 256, 8, 32, 8, 16, 64),
+    (2, 200, 2, 64, 1, 128, 64),   # ragged, the smallest chunk of the mma path
+    (2, 384, 4, 64, 1, 128, 128),
+    (2, 512, 4, 64, 2, 128, 256),
+    (1, 700, 4, 64, 1, 128, 256),  # ragged
+]
+SSD_INIT_STATE = {1, 5}            # cases also run from a random initial state
+
+# The main paths: each arch served at batch 8 x prompt 1024, 64 generated tokens.
+SERVE_ARCHS = ("tinyllama-1.1b", "mamba2-1.3b")
 BATCH, PROMPT_LEN, GEN = 8, 1024, 64
 SEED = 0
 # decode(token S) after prefill(S) against prefill(S + 1), in bf16 through 22
-# layers: the two sides round at different places (kernel: bf16 probabilities
-# over a bf16 cache; decode: fp32 probabilities), relative to max|logit|
+# or 48 layers: the two sides round at different places (attention: bf16
+# probabilities over a bf16 cache against fp32 ones; SSD: the chunked scan's
+# bf16 y against the recurrent step's), relative to max|logit|
 DECODE_TOL = 5e-2
 PARITY_TOL = 2e-4     # fp32, kernel path against dense path, 2 layers
-# full-width configs for that: the main path's, and the one whose head dim (80),
-# partial rotary and layer norm the main path does not have
-PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b")
+# full-width configs for that: the main paths', and the one whose head dim
+# (80), partial rotary and layer norm tinyllama does not have
+PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
 
 
 def emit(phase: str, **fields) -> None:
@@ -101,6 +121,27 @@ def attention_bound_ms(q, k, v, causal, window):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_bound_ms(x, dt, A, B_, C, chunk, init_state=None):
+    """Least time the card could take for the SSD scan: the larger of bytes
+    moved (x, dt, A, B, C and init_state read once, y and the final state
+    written once) over the memory rate and operations over the peak rate for
+    x's type.  Operations are what these inputs need: C.B^T once per group and
+    the diagonal product per head over the pairs j <= i of each chunk, and the
+    chunk states and the inter-chunk outputs, 2 P N each per row and head."""
+    Bsz, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    n_bytes = (2 * x.numel() + B_.numel() + C.numel()) * x.element_size() \
+        + (dt.numel() + A.numel() + Bsz * H * P * N) * 4 \
+        + (0 if init_state is None else init_state.numel() * 4)
+    rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2 * Bsz * (G * N * pairs + H * P * pairs + 2 * H * P * N * S)
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def library_attention(q, k, v, causal):
     """One PyTorch call for the same function: the yardstick, used nowhere in
     the port."""
@@ -121,13 +162,17 @@ def phase_env() -> str:
 
 
 def phase_build(verbose: bool) -> None:
-    from repro_torch.kernels.flash_attention import kernel
+    """Both kernels, one nvcc each, started together."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     t0 = time.perf_counter()
-    lib = kernel.build(verbose=verbose)
-    kernel.load()
-    emit("build", kernel="flash_attention_fwd",
-         source=str(kernel.SOURCE.relative_to(ROOT)),
-         library=str(lib.relative_to(ROOT)),
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(lambda k: k.build(verbose=verbose), (fa, ssd)))
+    for module in (fa, ssd):
+        module.load()
+    emit("build", kernels=["flash_attention_fwd", "ssd_scan_fwd"],
+         sources=[str(m.SOURCE.relative_to(ROOT)) for m in (fa, ssd)],
+         libraries=[str(lib.relative_to(ROOT)) for lib in libs],
          seconds=round(time.perf_counter() - t0, 3))
 
 
@@ -212,15 +257,84 @@ def phase_kernels() -> dict:
     return main
 
 
-def phase_serve() -> dict:
+def phase_ssd_kernels() -> dict:
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+    from repro_torch.testing import rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def make(B, S, H, P, G, N, dtype, with_init=False):
+        """The distributions of the JAX package's kernel tests."""
+        x = randn(B, S, H, P, scale=0.5).to(dtype)
+        dt = F.softplus(randn(B, S, H))
+        A = -torch.exp(randn(H, scale=0.3))
+        B_ = randn(B, S, G, N, scale=0.3).to(dtype)
+        C = randn(B, S, G, N, scale=0.3).to(dtype)
+        h0 = randn(B, H, P, N) if with_init else None
+        return (x, dt, A, B_, C), h0
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for idx, (B, S, H, P, G, N, chunk) in enumerate(SSD_SHAPES):
+            for with_init in sorted({False, idx in SSD_INIT_STATE}):
+                args, h0 = make(B, S, H, P, G, N, dtype, with_init)
+                y, hT = ssd(*args, chunk=chunk, init_state=h0, return_state=True)
+                torch.cuda.synchronize()
+                ry, rh = ssd_chunked_ref(*args, chunk=chunk, init_state=h0)
+                err_y, err_h = rel_err(y, ry), rel_err(hT, rh)
+                cases.append({"shape": [B, S, H, P, G, N], "chunk": chunk,
+                              "dtype": str(dtype).split(".")[1],
+                              "init_state": with_init, "y_rel_err": err_y,
+                              "state_rel_err": err_h, "tol": TOL[dtype]})
+                if not (err_y < TOL[dtype] and err_h < TOL[dtype]
+                        and torch.isfinite(y).all() and torch.isfinite(hT).all()):
+                    raise AssertionError(f"ssd disagrees: {cases[-1]}")
+
+    # the main path's shape: one mamba2-1.3b layer's scan at batch 8 x 1024
+    B, S, H, P, G, N, chunk = BATCH, PROMPT_LEN, 64, 64, 1, 128, 256
+    args, _ = make(B, S, H, P, G, N, torch.bfloat16)
+    y, hT = ssd(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    ry, rh = ssd_chunked_ref(*args, chunk=chunk)
+    err, err_h = rel_err(y, ry), rel_err(hT, rh)
+    abs_err = float((y.float() - ry.float()).abs().max())
+    if not (err < TOL[torch.bfloat16] and err_h < TOL[torch.bfloat16]):
+        raise AssertionError(f"main-path shape disagrees: y {err}, state {err_h}")
+    plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=chunk), 5, 1)
+    kernel_ms = time_ms(lambda: ssd(*args, chunk=chunk, return_state=True), 20)
+    kernel_ms = min(kernel_ms,
+                    time_ms(lambda: ssd(*args, chunk=chunk, return_state=True), 20))
+    bound_ms, bound_by = ssd_bound_ms(*args, chunk)
+    main = {"shape": [B, S, H, P, G, N], "chunk": chunk, "dtype": "bfloat16",
+            "max_rel_err": err, "state_rel_err": err_h, "max_abs_err": abs_err,
+            "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    emit("kernels", name="ssd_scan_fwd", sweep=cases,
+         max_rel_err_fp32=max(c["y_rel_err"] for c in cases if c["dtype"] == "float32"),
+         max_rel_err_bf16=max(c["y_rel_err"] for c in cases if c["dtype"] == "bfloat16"),
+         max_state_rel_err_fp32=max(c["state_rel_err"] for c in cases
+                                    if c["dtype"] == "float32"),
+         max_state_rel_err_bf16=max(c["state_rel_err"] for c in cases
+                                    if c["dtype"] == "bfloat16"),
+         main_path_shape=main)
+    return main
+
+
+def phase_serve(arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.launch.serve import generate, pad_cache_to
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.common import get_model, param_count
     from repro_torch.testing import rel_err
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = model.init(cfg, gen, "cuda")
@@ -228,15 +342,19 @@ def phase_serve() -> dict:
                             generator=gen, device="cuda")
     generate(cfg, params, prompts, 4)          # warm-up: library handles, caches
 
-    # the main path, with the kernel's count set to 0 just before it
+    # the main path, with every kernel's count set to 0 just before it: the
+    # arch's own kernel runs once per layer in the prefill, the other never
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    flash_attention.launches = ssd.launches = 0
     tokens, t_prefill, t_decode = generate(cfg, params, prompts, GEN)
-    launches = flash_attention.launches
+    counts = {"flash_attention_fwd": flash_attention.launches,
+              "ssd_scan_fwd": ssd.launches}
     peak = torch.cuda.max_memory_allocated()
-    if launches != cfg.num_layers:
-        raise AssertionError(f"{launches} kernel launches in one prefill of "
-                             f"{cfg.num_layers} layers")
+    own = "ssd_scan_fwd" if cfg.family == "ssm" else "flash_attention_fwd"
+    launches = counts[own]
+    if launches != cfg.num_layers or sum(counts.values()) != launches:
+        raise AssertionError(f"kernel launches {counts} in one prefill of "
+                             f"{cfg.num_layers} layers of {arch}")
     if tokens.shape != (BATCH, GEN) or int(tokens.min()) < 0 \
             or int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError("generated tokens out of range")
@@ -256,12 +374,13 @@ def phase_serve() -> dict:
         raise AssertionError(f"decode after prefill disagrees: {decode_err}")
 
     steps = GEN - 1
-    result = {"arch": ARCH, "params": param_count(params),
+    result = {"arch": arch, "params": param_count(params),
               "dtype": "bfloat16", "batch": BATCH, "prompt_len": PROMPT_LEN,
               "gen": GEN, "prefill_ms": t_prefill * 1e3,
               "decode_ms_per_token": t_decode * 1e3 / steps,
               "decode_tokens_per_s": BATCH * steps / t_decode,
-              "peak_memory_bytes": peak, "kernel_launches": launches,
+              "peak_memory_bytes": peak, "kernel": own,
+              "kernel_launches": launches, "launches_by_kernel": counts,
               "decode_vs_prefill_rel_err": decode_err, "decode_tol": DECODE_TOL}
     emit("serve", **result)
     return result
@@ -285,9 +404,10 @@ def phase_parity_on_card(arch: str) -> None:
     hidden_err = rel_err(model.forward(cfg, params, tokens),
                          model.forward(dense, params, tokens))
     logits_err = rel_err(logits_k, logits_d)
-    cache_err = max(rel_err(cache_k["k"], cache_d["k"]),
-                    rel_err(cache_k["v"], cache_d["v"]))
-    emit("parity_on_card", arch=arch, head_dim=cfg.resolved_head_dim, layers=2,
+    cache_err = max(rel_err(val, cache_d[key]) for key, val in cache_k.items()
+                    if isinstance(val, torch.Tensor))
+    head_dim = cfg.ssm_headdim if cfg.family == "ssm" else cfg.resolved_head_dim
+    emit("parity_on_card", arch=arch, head_dim=head_dim, layers=2,
          dtype="float32", logits_rel_err=logits_err,
          hidden_rel_err=hidden_err, cache_rel_err=cache_err, tol=PARITY_TOL)
     if not max(logits_err, hidden_err, cache_err) < PARITY_TOL:
@@ -305,24 +425,34 @@ def main() -> int:
     smi_line = phase_env()
     phase_build(verbose="--verbose-build" in sys.argv[1:])
     k1 = phase_kernels()
-    serve = phase_serve()
+    k2 = phase_ssd_kernels()
+    serves = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
     for arch in PARITY_ARCHS:
         phase_parity_on_card(arch)
 
-    from repro_torch.kernels.flash_attention import kernel
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": str(kernel.SOURCE.relative_to(ROOT)),
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
-        "launches": serve["kernel_launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["kernel_ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-    }]}))
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    rows = []
+    for name, module, replaces, numbers, arch in (
+            ("flash_attention_fwd", fa,
+             "src/repro/kernels/flash_attention/kernel.py:32", k1,
+             "tinyllama-1.1b"),
+            ("ssd_scan_fwd", ssd, "src/repro/kernels/ssd_scan/kernel.py:27",
+             k2, "mamba2-1.3b")):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": str(module.SOURCE.relative_to(ROOT)),
+            "replaces": replaces,
+            "launches": serves[arch]["kernel_launches"],
+            "max_abs_err": numbers["max_abs_err"],
+            "ms": numbers["kernel_ms"],
+            "plain_ms": numbers["plain_ms"],
+            "bound_ms": numbers["bound_ms"],
+            "bound_by": numbers["bound_by"],
+            "library_ms": numbers["library_ms"],
+        })
+    print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time goes when the PyTorch/CUDA port serves tinyllama-1.1b.
+"""Where the time goes when the PyTorch/CUDA port serves a model.
 
-    PYTHONPATH=src python3 scripts/profile_torch_serve.py [--layers N]
+    PYTHONPATH=src python3 scripts/profile_torch_serve.py [--arch A] [--layers N]
 
-Needs one CUDA card.  Serves the full-width model (random weights from a
-seed, batch 8 x prompt 1024) and traces one prefill and a window of decode
-steps with torch.profiler.  Prints one JSON line per phase: the wall time,
-the time the device was busy, its idle share, the number of kernels, and the
-kernels that took most of the device time.
+Needs one CUDA card.  Serves the full-width model (tinyllama-1.1b unless
+``--arch`` names another ported arch; random weights from a seed, batch 8 x
+prompt 1024) and traces one prefill and a window of decode steps with
+torch.profiler.  Prints one JSON line per phase: the wall time, the time the
+device was busy, its idle share, the number of kernels, and the kernels that
+took most of the device time.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import PORTED_ARCHS, get_config
 from repro_torch.launch.serve import pad_cache_to, resolve_device, sample
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.common import get_model
@@ -60,14 +61,15 @@ def summarize(phase, wall_ms, kernels, per=1, top=8, **extra):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b", choices=PORTED_ARCHS)
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth (default: the full 22 layers)")
+                    help="cut the depth (default: the arch's full depth)")
     args = ap.parse_args()
     device = resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(args.arch)
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
     model = get_model(cfg)
@@ -92,7 +94,7 @@ def main() -> None:
     run_prefill()           # warm-up: library handles, the kernel's build
     run_decode()
     print(json.dumps({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
-                      "layers": cfg.num_layers, "batch": BATCH,
+                      "arch": args.arch, "layers": cfg.num_layers, "batch": BATCH,
                       "prompt_len": PROMPT_LEN}), flush=True)
     wall, kernels = traced(run_prefill)
     summarize("prefill", wall, kernels)

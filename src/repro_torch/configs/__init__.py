@@ -26,10 +26,10 @@ ALL_ARCHS: List[str] = [
 ]
 
 PORTED_ARCHS: List[str] = [
-    "nemotron-4-15b", "llama3.2-3b", "tinyllama-1.1b", "stablelm-3b"]
+    "mamba2-1.3b", "nemotron-4-15b", "llama3.2-3b", "tinyllama-1.1b",
+    "stablelm-3b"]
 
 _FAMILY_OF_UNPORTED: Dict[str, str] = {
-    "mamba2-1.3b": "ssm",
     "zamba2-1.2b": "hybrid",
     "mixtral-8x22b": "moe",
     "deepseek-v2-lite-16b": "moe",

@@ -35,6 +35,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "../../csrc/hopper_mma.cuh"
+
 namespace {
 
 constexpr float kNegInf = -0.7f * FLT_MAX;  // masked logit, as the TPU kernel's
@@ -233,86 +235,6 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(FaParams p) {
 // traffic from L2 but cost registers or occupancy and gain nothing at
 // D = 64, Sq = 1024; see PERF.md.)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* smem_ptr) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem_ptr) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async_16(void* smem_ptr, const void* gptr) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem_ptr));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr),
-               "l"(gptr)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x by the special-function unit alone: exp2f() spends several more
-// instructions on denormal results, which bf16 probabilities do not need.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Copies rows [row0, row0 + ROWS) of a [seq, D] bf16 matrix with row stride
-// `ss` into shared memory with row stride LD, 16 bytes a thread; rows at or
-// beyond `seq` are zero-filled.  Needs 16-byte aligned rows (the wrapper
-// checks).
-template <int ROWS, int D, int LD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long ss, int row0, int seq,
-                                                int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < ROWS * CPR; i += 128) {
-    const int r = i / CPR, c = i % CPR;
-    __nv_bfloat16* d = dst + r * LD + c * 8;
-    const int row = row0 + r;
-    if (row < seq) {
-      cp_async_16(d, src + row * ss + c * 8);
-    } else {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(128) fa_fwd_bf16_mma(FaParams p) {

@@ -1,76 +1,37 @@
-"""Build, load and launch the CUDA flash-attention forward.
+"""Load and launch the CUDA flash-attention forward.
 
-The source ``csrc/flash_fwd.cu`` is compiled at first use with ``nvcc`` into a
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds) and loaded with ``ctypes``.  The library lands in ``build/``
-at the root of the checkout, named by a hash of the source, so an edit
-rebuilds.
+The source ``csrc/flash_fwd.cu`` is compiled at first use by
+``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded with
+``ctypes``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 HEAD_DIMS = (32, 64, 80, 128)     # multiples of 16 that a ported config has
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        candidate = Path(cuda_home) / "bin" / "nvcc"
-        if candidate.exists():
-            nvcc = str(candidate)
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the flash-attention kernel is "
-                           "built from source and needs the CUDA toolkit")
-    return nvcc
-
-
 def build(verbose: bool = False) -> Path:
     """Compile the kernel if its library is not there yet; return its path."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libflash_fwd_{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp_path), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr)
-    os.replace(tmp_path, lib_path)   # atomic: a concurrent build cannot tear it
-    return lib_path
+    return _build.build(SOURCE, verbose)
 
 
 def load() -> ctypes.CDLL:
     """The loaded library, built first if need be."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load(SOURCE)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fa_fwd.argtypes = ([ptr] * 4 + [i32] * 6 + [i64] * 12
                                + [i32, i32, ctypes.c_float, i32, ptr])

@@ -1,6 +1,9 @@
-"""Serving launcher: batched prefill + KV-cache decode on one GPU.
+"""Serving launcher: batched prefill, then decode from the KV cache (dense
+archs) or the recurrent state (mamba2-1.3b), on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --preset full --batch 8 --prompt-len 1024 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --preset full --batch 8 --prompt-len 1024 --gen 64
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with no card and no such
@@ -19,7 +22,9 @@ from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.common import get_model, resolve_device
 
-SEQ_KEYS = ("k", "v")     # cache entries whose second-to-last dim is the sequence
+# cache entries whose second-to-last dim is the sequence; a Mamba-2 cache has
+# none (its state and conv windows do not grow), so padding leaves it alone
+SEQ_KEYS = ("k", "v")
 
 
 def pad_cache_to(cache: dict, max_len: int) -> dict:

@@ -8,8 +8,8 @@ tensors:
 * ``decode_step(cfg, params, cache, batch)`` -> (logits, cache)
 
 ``ModelConfig`` has the fields and defaults of the JAX package's, with torch
-dtypes; ``attn_impl`` is ``"kernel"`` (the hand-written CUDA kernel wherever
-it applies) or ``"dense"`` (full logits in torch ops).
+dtypes; ``attn_impl`` is ``"kernel"`` (the hand-written CUDA kernels wherever
+they apply: attention and the SSD scan) or ``"dense"`` (torch ops only).
 """
 from __future__ import annotations
 
@@ -110,9 +110,10 @@ class ModelConfig:
     compute_dtype: Any = torch.bfloat16
     # activation-checkpoint policy of the training path: none|full|dots
     remat: str = "full"
-    # attention implementation: "kernel" (the CUDA flash-attention kernel for
-    # prefill; decode and the cases it does not cover run in torch ops) or
-    # "dense" (torch ops everywhere)
+    # implementation of the kernel-backed cores: "kernel" (the hand-written
+    # CUDA kernels wherever they apply: flash attention for prefill, the SSD
+    # scan for a Mamba-2 prefill; decode and the cases they do not cover run
+    # in torch ops) or "dense" (torch ops everywhere)
     attn_impl: str = "kernel"
     attn_row_parallel: bool = False
     attn_q_block: int = 1024
@@ -149,7 +150,6 @@ _REGISTRY: Dict[str, Any] = {}
 # families of the JAX package that the port does not have yet, and the slice
 # of the port that brings each
 UNPORTED_FAMILIES = {
-    "ssm": "the Mamba-2 serving slice (SSD scan kernel with state in and out)",
     "hybrid": "the Zamba2 slice (after Mamba-2)",
     "encdec": "the Whisper slice",
     "moe": "the MoE slice (Mixtral, DeepSeek MLA)",
@@ -167,7 +167,7 @@ def register(family: str):
 def get_model(cfg: ModelConfig):
     """Return the model implementation class for ``cfg.family``."""
     # import for side-effect registration
-    from repro_torch.models import transformer  # noqa: F401
+    from repro_torch.models import mamba2, transformer  # noqa: F401
     if cfg.family in _REGISTRY:
         return _REGISTRY[cfg.family]
     if cfg.family in UNPORTED_FAMILIES:

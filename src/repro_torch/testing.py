@@ -42,10 +42,12 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     """The JAX package's parameter tree (nested dicts of numpy arrays) as the
     port's.  The JAX tree stacks the layers on a leading axis of length
     ``num_layers``; the port keeps a list of per-layer dicts.  Linear weights
-    are ``[d_in, d_out]`` on both sides.  The parameters land on ``device``
+    are ``[d_in, d_out]`` on both sides, and every leaf keeps its type (the
+    fp32 ``dt_bias``, ``A_log`` and ``D`` of a Mamba-2 block stay fp32 in a
+    bf16 config).  The parameters land on ``device``
     (``cuda`` unless the caller names another; no card then raises)."""
     device = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"parameter bridge for family {cfg.family!r} is not ported yet")
     params = _convert(tree, device)

@@ -104,7 +104,7 @@ def test_config_defaults_equal_jax_defaults():
 
 def test_arch_lists_and_unported_archs_say_which_slice():
     assert ALL_ARCHS == JAX_ARCHS
-    assert sorted(PORTED_ARCHS) == sorted(DENSE)
+    assert sorted(PORTED_ARCHS) == sorted(DENSE + ["mamba2-1.3b"])
     for arch in ALL_ARCHS:
         if arch in PORTED_ARCHS:
             continue
@@ -113,8 +113,10 @@ def test_arch_lists_and_unported_archs_say_which_slice():
                 getter(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
-    with pytest.raises(NotImplementedError, match="Mamba-2"):
-        get_model(get_smoke_config("tinyllama-1.1b").replace(family="ssm"))
+    from repro_torch.models.mamba2 import Mamba2LM
+    assert get_model(get_smoke_config("tinyllama-1.1b").replace(family="ssm")) is Mamba2LM
+    with pytest.raises(NotImplementedError, match="Zamba2 slice"):
+        get_model(get_smoke_config("tinyllama-1.1b").replace(family="hybrid"))
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(get_smoke_config("tinyllama-1.1b").replace(family="rnn"))
     with pytest.raises(ValueError, match="not a torch dtype"):
@@ -310,27 +312,41 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
 def test_init_without_a_device_means_the_card():
     """``init``, ``init_cache`` and the parameter bridge default to ``cuda``:
     with no card they raise, and take the CPU only when asked to."""
-    cfg = get_smoke_config("tinyllama-1.1b")
-    model = get_model(cfg)
-    np_tree = _np_params(jax_smoke("tinyllama-1.1b"), 0)
-    calls = [lambda **kw: model.init(cfg, torch.Generator().manual_seed(0), **kw),
-             lambda **kw: model.init_cache(cfg, 2, 8, **kw),
-             lambda **kw: from_jax_params(cfg, np_tree, **kw)]
-    for call in calls:
-        if not torch.cuda.is_available():
-            with pytest.raises(RuntimeError, match="no CUDA device"):
-                call()
-        tree = call(device="cpu")
-        leaf = tree["k"] if "k" in tree else tree["final_norm"]["scale"]
-        assert leaf.device.type == "cpu"
+    for arch in ("tinyllama-1.1b", "mamba2-1.3b"):
+        cfg = get_smoke_config(arch)
+        model = get_model(cfg)
+        np_tree = _np_params(jax_smoke(arch), 0)
+        calls = [lambda **kw: model.init(cfg, torch.Generator().manual_seed(0), **kw),
+                 lambda **kw: model.init_cache(cfg, 2, 8, **kw),
+                 lambda **kw: from_jax_params(cfg, np_tree, **kw)]
+        for call in calls:
+            if not torch.cuda.is_available():
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    call()
+            tree = call(device="cpu")
+            leaves = [v for v in jax.tree_util.tree_leaves(tree)
+                      if isinstance(v, torch.Tensor)]
+            assert leaves and all(t.device.type == "cpu" for t in leaves), arch
 
 
-@pytest.mark.parametrize("arch", PORTED_ARCHS)
+@pytest.mark.parametrize("arch", DENSE)
 def test_kernel_takes_the_full_width_head_dim(arch):
     """Prefill on the card goes through the kernel, which raises on a head dim
-    it was not built for: every ported arch's full config must be in its set."""
+    it was not built for: every ported attention arch's full config must be
+    in its set."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     assert get_config(arch).resolved_head_dim in HEAD_DIMS
+
+
+def test_ssd_kernel_takes_the_full_width_ssm_shape():
+    """Mamba-2 prefill on the card goes through the SSD kernel, which raises
+    on a (P, N, chunk) it was not built for: mamba2-1.3b's full config must be
+    one it takes."""
+    from repro_torch.kernels.ssd_scan import kernel
+    cfg = get_config("mamba2-1.3b")
+    assert [a for a in PORTED_ARCHS if get_config(a).family == "ssm"] == ["mamba2-1.3b"]
+    assert kernel.takes(cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
+    assert cfg.ssm_chunk in kernel.CHUNKS
 
 
 # -- what the port may import --------------------------------------------------------------------------
@@ -339,7 +355,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "examples" / "serve_batch_torch.py",
               REPO / "scripts" / "profile_torch_serve.py"]
-    assert len(files) > 15
+    assert len(files) > 25
+    scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
+               for p in files if "repro_torch" in p.parts}
+    assert {"models/mamba2.py", "configs/mamba2_1p3b.py", "kernels/_build.py",
+            "kernels/ssd_scan/ref.py", "kernels/ssd_scan/kernel.py",
+            "kernels/ssd_scan/ops.py"} <= scanned
     banned = re.compile(
         r"^\s*(import\s+(jax|flax|repro)(\.|\s|,|$)|from\s+(jax|flax|repro)(\.|\s))",
         re.MULTILINE)
