@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port starts and is right on the GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--verbose-build]
 
 Needs one NVIDIA Hopper card, `nvcc` and nothing else; no network.  It builds
-the port's two kernels (flash attention, the Mamba-2 SSD scan) from the
-sources in this checkout, holds each against its plain PyTorch version on the
-card (naming the CUDA kernels that each call launched, as the C functions
-count them), serves tinyllama-1.1b and mamba2-1.3b at full width (random
-weights from a seed: batch 8 x prompt 1024, 64 generated tokens) through the
-port's prefill and decode steps, and checks the results.  Every phase prints one
-JSON line; any failure raises, so the exit code is not 0.  The last line is
-`{"ok": true, "device": {...}}`.  Without a CUDA device it prints no result
-and exits with code 1.
+the port's kernels (flash attention forward and backward, the Mamba-2 SSD
+scan) from the sources in this checkout, holds each against its plain
+PyTorch version on the card (naming the CUDA kernels that each call launched,
+as the C functions count them), serves tinyllama-1.1b and mamba2-1.3b at full
+width (random weights from a seed: batch 8 x prompt 1024, 64 generated
+tokens) through the port's prefill and decode steps, trains tinyllama-1.1b at
+full width and depth (batch 8 x 1024, a few AdamW steps through the port's
+train step), holds the kernel paths against the dense paths, and checks the
+results.  Every phase prints one JSON line; any failure raises, so the exit
+code is not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a
+CUDA device it prints no result and exits with code 1.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,6 +51,25 @@ SWEEP_MASKS = [(True, None), (False, None), (True, 48)]
 # relative to max|plain|, for attention's output and for the SSD scan's y and
 # final state alike
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+# The backward (K1b): (B, Hq, Hkv, Sq, Skv, D) x (causal, window), at every
+# head dim, GQA and MQA, ragged lengths, Sq != Skv both ways, and a window
+# that leaves the later rows of a short kv without a key (zero gradient)
+BWD_SHAPES = [
+    (1, 2, 2, 64, 64, 32),
+    (2, 4, 2, 130, 130, 64),      # GQA + ragged
+    (1, 8, 1, 97, 160, 64),       # MQA, Skv > Sq
+    (2, 4, 4, 150, 150, 80),      # stablelm-3b's head dim, ragged
+    (2, 4, 2, 200, 200, 128),     # GQA + ragged at head dim 128
+    (1, 8, 2, 96, 40, 32),        # Skv < Sq
+]
+BWD_MASKS = [(True, None), (False, None), (True, 48), (False, 16)]
+# dq, dk, dv relative to max|plain|: fp32 sums in another order than the
+# plain version's over up to 200 keys and 4 query heads a KV head; bf16
+# rounds P and dS to bf16 for the second products
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the training shape: tinyllama-1.1b's attention at batch 8 x sequence 1024
+TRAIN_ATTN_SHAPE = (8, 32, 4, 1024, 1024, 64)
 
 # (B, S, H, P, G, N, chunk) of the SSD scan: the sweep of the JAX package's
 # kernel tests (the fp32-pipe kernel in both types), then chunks 64, 128 (the
@@ -81,6 +103,23 @@ PARITY_TOL = 2e-4     # fp32, kernel path against dense path, 2 layers
 # full-width configs for that: the main paths', and the one whose head dim
 # (80), partial rotary and layer norm tinyllama does not have
 PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
+
+# The training path: tinyllama-1.1b at full width and depth, bf16, remat
+# "full" (the config's), batch 8 x sequence 1024, one warm-up step and then
+# TRAIN_STEPS timed AdamW steps, all on the first batch of the synthetic
+# pipeline, so the loss must fall from timed step to timed step, and end
+# below the warm-up step's.  A first Adam step from random weights moves
+# every weight by about lr in its gradient's sign, and raises the loss on
+# both attention paths and with fp32 weights too; larger lrs without warm-up
+# swing wider (scripts/train_lr_sweep.py), so these steps take a small one
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_STEPS = 3
+TRAIN_OPT = dict(lr=1e-5, warmup_steps=0)
+# Adam's update lr·m̂/(√v̂ + eps) is ill-conditioned where the gradient (after
+# the clip) is within a hundred eps of zero: a difference at rounding level
+# there moves an element by up to 2 lr.  The on-card parity of the updated
+# params counts such elements and holds the rest to PARITY_TOL.
+NEAR_ZERO_GRAD = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -148,18 +187,20 @@ def ssd_bound_ms(x, dt, A, B_, C, chunk, init_state=None):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def launched_variant(fn, module, expected: str):
+def launched_variant(fn, module, expected: str, variants=None):
     """Run `fn` (one call of a kernel's op) once; the CUDA kernels that the C
     function counted as launched in that call (`module.launch_counts()` read
-    before and after) say which variant of `module` ran.  Raises when they are
-    not one variant's kernels or not the variant that `module.variant()`
-    names.  Returns (fn's result, variant, CUDA kernels launched)."""
+    before and after) say which variant of `module` ran (of `variants`, the
+    variant -> CUDA kernels table, `module.VARIANT_KERNELS` unless given).
+    Raises when they are not one variant's kernels or not the variant that
+    `module.variant()` names.  Returns (fn's result, variant, CUDA kernels
+    launched)."""
     before = module.launch_counts()
     out = fn()
     torch.cuda.synchronize()
     seen = {k: n - before[k] for k, n in module.launch_counts().items()
             if n != before[k]}
-    ran = [v for v, ks in module.VARIANT_KERNELS.items()
+    ran = [v for v, ks in (variants or module.VARIANT_KERNELS).items()
            if seen == {k: ks.count(k) for k in ks}]
     if ran != [expected]:
         raise AssertionError(f"one call launched {seen}: variant {ran}, but "
@@ -187,16 +228,18 @@ def phase_env() -> str:
 
 
 def phase_build(verbose: bool) -> None:
-    """Both kernels, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
+    sources = (fa.SOURCE, fa.SOURCE_BWD, ssd.SOURCE)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(lambda k: k.build(verbose=verbose), (fa, ssd)))
-    for module in (fa, ssd):
-        module.load()
-    emit("build", kernels=["flash_attention_fwd", "ssd_scan_fwd"],
-         sources=[str(m.SOURCE.relative_to(ROOT)) for m in (fa, ssd)],
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        libs = list(pool.map(lambda src: _build.build(src, verbose), sources))
+    fa.load(), fa.load_bwd(), ssd.load()
+    emit("build", kernels=["flash_attention_fwd", "flash_attention_bwd",
+                           "ssd_scan_fwd"],
+         sources=[str(src.relative_to(ROOT)) for src in sources],
          libraries=[str(lib.relative_to(ROOT)) for lib in libs],
          seconds=round(time.perf_counter() - t0, 3))
 
@@ -290,6 +333,135 @@ def phase_kernels() -> dict:
          max_rel_err_fp32=max(c["rel_err"] for c in cases if c["dtype"] == "float32"),
          max_rel_err_bf16=max(c["rel_err"] for c in cases if c["dtype"] == "bfloat16"),
          main_path_shape=main, head_dim_128=d128)
+    return main
+
+
+def attention_bwd_bound_ms(q, k, v, causal, window):
+    """Least time the card could take for the backward: the larger of bytes
+    moved (q, k, v, o, dO and lse read once, dq, dk, dv written once) over
+    the memory rate and operations (five products over the visible pairs,
+    2.5 times the forward's two) over the peak rate for the type."""
+    B, Hq, Sq, D = q.shape
+    n_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size() \
+        + B * Hq * Sq * 4
+    flops = 10 * B * Hq * D * visible_pairs(Sq, k.shape[2], causal, window)
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_attention_bwd() -> dict:
+    """K1b: the backward kernel against its plain version over the sweep,
+    the forward's log-sum-exp against the plain one, and the backward timed
+    at the training shape."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_ref)
+    from repro_torch.testing import rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def make(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    def lse_err(lse, ref):
+        """rel err over the rows that see a key; the others must both hold
+        the masked logit"""
+        seen = ref > -1e38
+        if not bool(torch.equal(seen, lse > -1e38)):
+            raise AssertionError("lse: rows without a key disagree")
+        return rel_err(lse[seen], ref[seen]) if bool(seen.any()) else 0.0
+
+    def inputs(shape, dtype, causal, window):
+        B, Hq, Hkv, Sq, Skv, D = shape
+        q, k, v = make((B, Hq, Sq, D), dtype), make((B, Hkv, Skv, D), dtype), \
+            make((B, Hkv, Skv, D), dtype)
+        out, lse = attention_ref(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+        return q, k, v, out, lse, make((B, Hq, Sq, D), dtype)
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in BWD_SHAPES:
+            D = shape[-1]
+            for causal, window in BWD_MASKS:
+                q, k, v, out, lse, do = inputs(shape, dtype, causal, window)
+                (_, lse_k), _, _ = launched_variant(
+                    lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                                   window=window, return_lse=True),
+                    fa, fa.variant(dtype, D))
+                grads, ran, _ = launched_variant(
+                    lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   causal=causal, window=window),
+                    fa, fa.variant_bwd(dtype, D), fa.VARIANT_KERNELS_BWD)
+                ref = attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+                errs = [rel_err(g, r) for g, r in zip(grads, ref)]
+                blind = lse <= -1e38      # rows that see no key: zero dq
+                case = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+                        "variant": ran, "causal": causal, "window": window,
+                        "dq_rel_err": errs[0], "dk_rel_err": errs[1],
+                        "dv_rel_err": errs[2], "tol": BWD_TOL[dtype],
+                        "lse_rel_err": lse_err(lse_k, lse), "lse_tol": TOL[dtype],
+                        "rows_without_key": int(blind.sum())}
+                cases.append(case)
+                if not (max(errs) < BWD_TOL[dtype] and case["lse_rel_err"] < TOL[dtype]
+                        and all(bool(torch.isfinite(g).all()) for g in grads)
+                        and float(grads[0][blind].abs().sum()) == 0.0):
+                    raise AssertionError(f"flash_attention_bwd disagrees: {case}")
+
+    # the training shape: tinyllama-1.1b's attention, bf16, causal
+    q, k, v, out, lse, do = inputs(TRAIN_ATTN_SHAPE, torch.bfloat16, True, None)
+    grads, ran, n_kernels = launched_variant(
+        lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True), fa,
+        fa.variant_bwd(torch.bfloat16, 64), fa.VARIANT_KERNELS_BWD)
+    ref = attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    errs = [rel_err(g, r) for g, r in zip(grads, ref)]
+    abs_err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref))
+    _, lse_k = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    main_lse_err = lse_err(lse_k, lse)
+    if not (max(errs) < BWD_TOL[torch.bfloat16] and main_lse_err < TOL[torch.bfloat16]):
+        raise AssertionError(f"training shape disagrees: {errs}, lse {main_lse_err}")
+    # the library call: the backward alone of PyTorch's fused attention,
+    # replayed on a saved graph
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=True)
+    library = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,  # noqa: E731
+                                          retain_graph=True)
+    lib_err = max(rel_err(g, r) for g, r in zip(library(), ref))
+    bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)  # noqa: E731
+    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, causal=True), 3, 1)
+    kernel_ms = time_ms(bwd, 20)
+    library_ms = time_ms(library, 20)
+    kernel_ms = min(kernel_ms, time_ms(bwd, 20))
+    bound_ms, bound_by = attention_bwd_bound_ms(q, k, v, True, None)
+    # the forward at the same shape, without and with the log-sum-exp, in turns
+    fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    fwd_lse = lambda: fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)  # noqa: E731
+    fwd_ms = [time_ms(fwd, 50), time_ms(fwd_lse, 50), time_ms(fwd_lse, 50), time_ms(fwd, 50)]
+    main = {"shape": list(TRAIN_ATTN_SHAPE), "dtype": "bfloat16", "causal": True,
+            "variant": ran, "cuda_kernels_per_call": n_kernels,
+            "dq_rel_err": errs[0], "dk_rel_err": errs[1], "dv_rel_err": errs[2],
+            "max_abs_err": abs_err, "lse_rel_err": main_lse_err,
+            "tol": BWD_TOL[torch.bfloat16], "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_rel_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
+            "fwd_ms_without_lse": min(fwd_ms[0], fwd_ms[3]),
+            "fwd_ms_with_lse": min(fwd_ms[1], fwd_ms[2]),
+            "fwd_ms_in_turns": fwd_ms}
+    emit("kernels", name="flash_attention_bwd", sweep=cases,
+         max_rel_err_fp32=max(max(c["dq_rel_err"], c["dk_rel_err"], c["dv_rel_err"])
+                              for c in cases if c["dtype"] == "float32"),
+         max_rel_err_bf16=max(max(c["dq_rel_err"], c["dk_rel_err"], c["dv_rel_err"])
+                              for c in cases if c["dtype"] == "bfloat16"),
+         max_lse_rel_err_fp32=max(c["lse_rel_err"] for c in cases
+                                  if c["dtype"] == "float32"),
+         max_lse_rel_err_bf16=max(c["lse_rel_err"] for c in cases
+                                  if c["dtype"] == "bfloat16"),
+         main_path_shape=main)
     return main
 
 
@@ -387,9 +559,10 @@ def phase_serve(arch: str) -> dict:
     # the main path, with every kernel's count set to 0 just before it: the
     # arch's own kernel runs once per layer in the prefill, the other never
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = ssd.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = ssd.launches = 0
     tokens, t_prefill, t_decode = generate(cfg, params, prompts, GEN)
     counts = {"flash_attention_fwd": flash_attention.launches,
+              "flash_attention_bwd": flash_attention.bwd_launches,
               "ssd_scan_fwd": ssd.launches}
     peak = torch.cuda.max_memory_allocated()
     own = "ssd_scan_fwd" if cfg.family == "ssm" else "flash_attention_fwd"
@@ -457,6 +630,137 @@ def phase_parity_on_card(arch: str) -> None:
                              "on the card")
 
 
+def _train_batch(cfg) -> dict:
+    """The first batch of the port's synthetic pipeline, on the card."""
+    from repro_torch.data import DataConfig, ShardedDataset, make_batch_iter
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=PROMPT_LEN,
+                      global_batch=BATCH, num_shards=64)
+    batch = next(make_batch_iter(ShardedDataset(data, num_hosts=1), hosts=[0]))
+    return {k: torch.from_numpy(v).long().cuda() for k, v in batch.items()}
+
+
+def phase_train() -> dict:
+    """tinyllama-1.1b trains: a warm-up step, then TRAIN_STEPS timed steps of
+    the port's train step, with every kernel's count set to 0 just before
+    them: K1 twice a layer a step (the forward, and again under the full
+    remat's recompute), K1b once, K2 never."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import get_model, param_count, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config(TRAIN_ARCH)
+    if cfg.remat != "full" or cfg.param_dtype != torch.bfloat16:
+        raise AssertionError(f"{TRAIN_ARCH}: remat {cfg.remat}, {cfg.param_dtype}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = get_model(cfg).init(cfg, gen, "cuda")
+    opt = adamw_init(params)
+    batch = _train_batch(cfg)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch)          # warm-up
+    losses = [float(metrics["loss"])]
+    warmup_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention.bwd_launches = ssd.launches = 0
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))               # waits for the step
+        times.append(time.perf_counter() - t0)
+    counts = {"flash_attention_fwd": flash_attention.launches,
+              "flash_attention_bwd": flash_attention.bwd_launches,
+              "ssd_scan_fwd": ssd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"flash_attention_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
+                "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS,
+                "ssd_scan_fwd": 0}
+    if counts != expected:
+        raise AssertionError(f"kernel launches {counts} in {TRAIN_STEPS} train "
+                             f"steps of {cfg.num_layers} layers, expected {expected}")
+    timed = losses[1:]
+    if not all(math.isfinite(x) for x in losses) or timed[-1] >= losses[0] or \
+            any(b >= a for a, b in zip(timed, timed[1:])):
+        raise AssertionError(f"train losses (warm-up, then timed) not finite "
+                             f"and falling: {losses}")
+    n_params = param_count(params)
+    ms = sum(times) / len(times) * 1e3
+    result = {"arch": TRAIN_ARCH, "params": n_params, "dtype": "bfloat16",
+              "remat": cfg.remat, "batch": BATCH, "seq": PROMPT_LEN,
+              "steps_timed": TRAIN_STEPS, "warmup_step_s": warmup_s,
+              "ms_per_step": ms, "ms_per_step_each": [t * 1e3 for t in times],
+              "tokens_per_s": BATCH * PROMPT_LEN / (ms / 1e3),
+              "warmup_loss": losses[0], "losses": timed,
+              "peak_memory_bytes": peak,
+              "param_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
+              "moment_bytes": 2 * 4 * n_params, "fp32_grad_bytes": 4 * n_params,
+              "launches_by_kernel": counts}
+    emit("train", **result)
+    return result
+
+
+def phase_train_parity_on_card() -> None:
+    """One train step of tinyllama-1.1b at full width, 2 layers, fp32, with
+    the kernels against the dense path: loss, every gradient and the updated
+    params (the ill-conditioned elements counted, the rest) at PARITY_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models.common import get_model, tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.testing import rel_err
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=2, param_dtype=torch.float32,
+                                         compute_dtype=torch.float32)
+    dense = cfg.replace(attn_impl="dense")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params = get_model(cfg).init(cfg, gen, "cuda")
+    batch = _train_batch(cfg)
+    loss_k, grads_k = loss_and_grads(cfg, params, batch)
+    loss_d, grads_d = loss_and_grads(dense, params, batch)
+    grad_errs = [rel_err(a, b) for a, b in zip(grads_k, grads_d)]
+    stepped = {}
+    for name, c in (("kernel", cfg), ("dense", dense)):
+        p = tree_map(torch.clone, params)
+        p, _, m = make_train_step(c, AdamWConfig(**TRAIN_OPT))(p, adamw_init(p), batch)
+        stepped[name] = (p, float(m["loss"]))
+    # the gradient Adam sees on the dense path: after the global-norm clip
+    norm = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads_d)))
+    clip = min(1.0, AdamWConfig().clip_norm / max(norm, 1e-9))
+    n_ill, ill_max_abs, ill_max_g, param_err = 0, 0.0, 0.0, 0.0
+    for a, b, g in zip(tree_leaves(stepped["kernel"][0]),
+                       tree_leaves(stepped["dense"][0]), grads_d):
+        diff = (a - b).abs()
+        ill = (g.float() * clip).abs() < NEAR_ZERO_GRAD
+        scale = float(b.abs().max()) + 1e-9
+        if bool((~ill).any()):
+            param_err = max(param_err, float(diff[~ill].max()) / scale)
+        off = ill & (diff > PARITY_TOL * scale)
+        n_ill += int(off.sum())
+        if bool(off.any()):
+            ill_max_abs = max(ill_max_abs, float(diff[off].max()))
+            ill_max_g = max(ill_max_g, float((g.float() * clip).abs()[off].max()))
+    loss_err = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
+    step_loss_err = abs(stepped["kernel"][1] - stepped["dense"][1]) / abs(stepped["dense"][1])
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    result = {"arch": TRAIN_ARCH, "layers": 2, "dtype": "float32",
+              "loss_rel_err": loss_err, "step_loss_rel_err": step_loss_err,
+              "max_grad_rel_err": max(grad_errs), "params_rel_err": param_err,
+              "grad_norm": norm, "ill_conditioned_elements_off": n_ill,
+              "ill_conditioned_max_abs_diff": ill_max_abs,
+              "ill_conditioned_max_clipped_grad": ill_max_g,
+              "params": n_params, "tol": PARITY_TOL}
+    emit("train_parity_on_card", **result)
+    if not (max(loss_err, step_loss_err, max(grad_errs), param_err) < PARITY_TOL
+            and n_ill <= 1e-4 * n_params
+            and ill_max_abs <= 2 * TRAIN_OPT["lr"] * 1.01):
+        raise AssertionError(f"training: kernel path and dense path disagree: {result}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -471,26 +775,37 @@ def main() -> int:
     serves = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
     for arch in PARITY_ARCHS:
         phase_parity_on_card(arch)
+    k1b = phase_attention_bwd()
+    trained = phase_train()
+    phase_train_parity_on_card()
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    # one row per TPU kernel; `launches` counts calls of the op on the main
-    # path; `variant` and `cuda_kernels_per_call` are what the C function
-    # counted one call launch at the main path's shape (the SSD scan's wgmma
-    # variant: the state pass, then the outputs)
+    # one row per TPU kernel, and one for the attention backward (the JAX
+    # package's blocked jnp backward, a hand-written kernel here); `launches`
+    # counts calls of the op on the main path; `variant` and
+    # `cuda_kernels_per_call` are what the C function counted one call launch
+    # at the main path's shape (the SSD scan's wgmma variant: the state pass,
+    # then the outputs; the backward: delta, dK/dV, dQ)
     rows = []
     for name, module, replaces, numbers, arch in (
             ("flash_attention_fwd", fa,
              "src/repro/kernels/flash_attention/kernel.py:32", k1,
              "tinyllama-1.1b"),
             ("ssd_scan_fwd", ssd, "src/repro/kernels/ssd_scan/kernel.py:27",
-             k2, "mamba2-1.3b")):
+             k2, "mamba2-1.3b"),
+            ("flash_attention_bwd", fa, "src/repro/models/flash.py:197", k1b,
+             None)):
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": str(module.SOURCE.relative_to(ROOT)),
+            "source": str((fa.SOURCE_BWD if arch is None else module.SOURCE)
+                          .relative_to(ROOT)),
             "replaces": replaces,
-            "launches": serves[arch]["kernel_launches"],
+            # the serving kernels' launches in one prefill; the backward's in
+            # the timed train steps
+            "launches": (trained["launches_by_kernel"][name] if arch is None
+                         else serves[arch]["kernel_launches"]),
             "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["kernel_ms"],
             "plain_ms": numbers["plain_ms"],

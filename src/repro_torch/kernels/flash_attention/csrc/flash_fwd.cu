@@ -42,6 +42,16 @@
 // their strides, so a [B, S, H, D] projection viewed as [B, H, S, D] needs no
 // copy.
 //
+// Training asks each kernel for the log-sum-exp of every row as well (a
+// non-null `lse`, [B, Hq, Sq] fp32): lse = m + log(l) in natural-log units of
+// the scaled logits, which the backward (flash_bwd.cu) needs to recompute the
+// probabilities.  The kernels keep m in base 2 (the scale passed in is
+// log2(e)/sqrt(D)), so each converts with ln(2).  A row that sees no key has
+// l = 0 (every visible logit adds at least exp(0) = 1 at the row's maximum)
+// and gets lse = kNegInf, the finite masked logit, as the JAX package's
+// blocked forward gives it (its log(1e-30) vanishes in the rounding).  With a
+// null `lse` nothing is written: serving runs the same code as before.
+//
 // The C interface at the end returns cudaGetLastError() of the launch (or
 // cudaErrorInvalidValue when the driver refuses a tensor map).
 
@@ -83,6 +93,7 @@ struct FaParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;        // [B, Hq, Sq] contiguous, or null: not asked for
   int hq, hkv, sq, skv;
   long long q_sb, q_sh, q_ss;  // strides in elements; the last dim has stride 1
   long long k_sb, k_sh, k_ss;
@@ -123,6 +134,16 @@ __device__ __forceinline__ bool visible(const FaParams& p, int qpos, int kpos) {
   if (p.causal) ok = ok && (qpos >= kpos);
   if (p.window > 0) ok = ok && (qpos - kpos < p.window);
   return ok;
+}
+
+// Writes row qpos's log-sum-exp when it was asked for.  m2 is the row's
+// maximum in base-2 units of the scaled logit, l its sum of 2^(x - m2).
+__device__ __forceinline__ void store_lse(const FaParams& p, int b, int h,
+                                          int qpos, float m2, float l) {
+  if (p.lse == nullptr) return;
+  constexpr float kLn2 = 0.6931471805599453f;
+  p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + qpos] =
+      l > 0.f ? m2 * kLn2 + logf(l) : kNegInf;
 }
 
 // ---------------------------------------------------------------------------
@@ -259,6 +280,7 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(FaParams p) {
   for (int i = 0; i < 4; ++i) {
     const int qpos = q_start + ty * 4 + i;
     if (qpos >= p.sq) continue;
+    if (tx == 0) store_lse(p, b, h, qpos, m[i], l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < ND; ++j)
@@ -468,6 +490,7 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16_mma(FaParams p) {
   for (int r = 0; r < 2; ++r) {
     const int qpos = q_start + warp * 16 + g + r * 8;
     if (qpos >= p.sq) continue;
+    if (t == 0) store_lse(p, b, h, qpos, m[r] * p.scale_log2, l[r]);
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = og + qpos * p.o_ss + 2 * t;
 #pragma unroll
@@ -737,6 +760,7 @@ __global__ void __launch_bounds__(288, 1)
     for (int r = 0; r < 2; ++r) {
       const int qpos = row0 + r * 8;
       if (qpos >= p.sq) continue;
+      if (qd == 0) store_lse(p, it.b, it.h, qpos, m[r] * p.scale_log2, l[r]);
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       bf16* orow = og + qpos * p.o_ss + 2 * qd;
 #pragma unroll
@@ -838,11 +862,12 @@ cudaError_t launch_d(const FaParams& p, int batch, int variant,
 // dim: 0 = fa_fwd_simt (float32 tensors), 1 = fa_fwd_bf16_mma, 2 =
 // fa_fwd_wgmma (bfloat16 tensors).  Strides are in elements; the last
 // dimension of every tensor has stride 1.  For bfloat16 every pointer and every
-// row start must be 16-byte aligned.  Returns the launch's cudaError_t as an
-// int (0 = success; cudaErrorInvalidValue for a head dim or variant that has
-// no kernel).
+// row start must be 16-byte aligned.  `lse`: null, or a contiguous [B, Hq, Sq]
+// fp32 buffer that receives each row's log-sum-exp.  Returns the launch's
+// cudaError_t as an int (0 = success; cudaErrorInvalidValue for a head dim or
+// variant that has no kernel).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
-                      int batch, int hq, int hkv, int sq, int skv, int d,
+                      void* lse, int batch, int hq, int hkv, int sq, int skv, int d,
                       long long q_sb, long long q_sh, long long q_ss,
                       long long k_sb, long long k_sh, long long k_ss,
                       long long v_sb, long long v_sh, long long v_ss,
@@ -851,6 +876,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
                       void* stream) {
   FaParams p;
   p.q = q; p.k = k; p.v = v; p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.hq = hq; p.hkv = hkv; p.sq = sq; p.skv = skv;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;

@@ -1,23 +1,26 @@
-"""Load and launch the CUDA flash-attention forward.
+"""Load and launch the CUDA flash-attention forward and backward.
 
-The source ``csrc/flash_fwd.cu`` is compiled at first use by
-``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded with
-``ctypes``).  It holds three kernels behind one C function; which one runs is
-fixed by the dtype and the head dim alone: ``variant`` is that rule, and the
-wrapper passes its choice to the C function, which launches what it is told.
+The sources ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` are compiled at
+first use by ``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded
+with ``ctypes``), one library each.  The forward holds three kernels behind
+one C function, the backward two variants of three kernels behind another;
+which runs is fixed by the dtype and the head dim alone: ``variant`` and
+``variant_bwd`` are that rule, and the wrappers pass their choice to the C
+functions, which launch what they are told.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+SOURCE_BWD = SOURCE.with_name("flash_bwd.cu")
 HEAD_DIMS = (32, 64, 80, 128)     # multiples of 16 that a ported config has
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # bf16 head dims of the wgmma + TMA kernel: rows of 128 or 256 bytes, whole
@@ -27,22 +30,30 @@ WGMMA_HEAD_DIMS = (64, 128)
 VARIANT_CODES = {"fa_fwd_simt": 0, "fa_fwd_bf16_mma": 1, "fa_fwd_wgmma": 2}
 # the CUDA kernels one call launches, by variant
 VARIANT_KERNELS = {v: (v,) for v in VARIANT_CODES}
+# the backward's variants (FaBwdVariant in flash_bwd.cu) and their kernels
+VARIANT_CODES_BWD = {"fa_bwd_simt": 0, "fa_bwd_bf16_mma": 1}
+VARIANT_KERNELS_BWD = {
+    "fa_bwd_simt": ("fa_bwd_delta", "fa_bwd_dkdv_simt", "fa_bwd_dq_simt"),
+    "fa_bwd_bf16_mma": ("fa_bwd_delta", "fa_bwd_dkdv_mma", "fa_bwd_dq_mma"),
+}
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_bwd: Optional[ctypes.CDLL] = None
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel if its library is not there yet; return its path."""
-    return _build.build(SOURCE, verbose)
+def build(verbose: bool = False) -> Tuple[Path, Path]:
+    """Compile the forward's and the backward's libraries where they are not
+    there yet; return their paths."""
+    return _build.build(SOURCE, verbose), _build.build(SOURCE_BWD, verbose)
 
 
 def load() -> ctypes.CDLL:
-    """The loaded library, built first if need be."""
+    """The loaded forward library, built first if need be."""
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fa_fwd.argtypes = ([ptr] * 4 + [i32] * 6 + [i64] * 12
+        lib.fa_fwd.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 12
                                + [i32, i32, ctypes.c_float, i32, ptr])
         lib.fa_fwd.restype = i32
         lib.fa_error_string.argtypes = [i32]
@@ -51,11 +62,27 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def load_bwd() -> ctypes.CDLL:
+    """The loaded backward library, built first if need be."""
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = _build.load(SOURCE_BWD)
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fa_bwd.argtypes = ([ptr] * 10 + [i32] * 6 + [i64] * 15
+                               + [i32, i32, ctypes.c_float, i32, ptr])
+        lib.fa_bwd.restype = i32
+        lib.fa_bwd_error_string.argtypes = [i32]
+        lib.fa_bwd_error_string.restype = ctypes.c_char_p
+        _lib_bwd = lib
+    return _lib_bwd
+
+
 def launch_counts() -> Dict[str, int]:
-    """Launches of each CUDA kernel of the library since it was loaded, as
-    the C function counts them where a launch succeeds: which kernels a call
-    really ran is the difference of two readings."""
-    return _build.launch_counts(load(), "fa")
+    """Launches of each CUDA kernel of both libraries since they were loaded,
+    as the C functions count them where a launch succeeds: which kernels a
+    call really ran is the difference of two readings."""
+    return {**_build.launch_counts(load(), "fa"),
+            **_build.launch_counts(load_bwd(), "fa_bwd")}
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -67,6 +94,14 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.float32:
         return "fa_fwd_simt"
     return "fa_fwd_wgmma" if head_dim in WGMMA_HEAD_DIMS else "fa_fwd_bf16_mma"
+
+
+def variant_bwd(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward that runs for this dtype and head dim: ``fa_bwd_bf16_mma``
+    (bf16: mma.sync) or ``fa_bwd_simt`` (float32, on the fp32 pipes)."""
+    if dtype not in DTYPE_CODES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"no kernel for {dtype} at head dim {head_dim}")
+    return "fa_bwd_simt" if dtype == torch.float32 else "fa_bwd_bf16_mma"
 
 
 def _aligned16(x: torch.Tensor) -> bool:
@@ -82,8 +117,39 @@ def flash_attention_fwd(
     *,
     causal: bool = True,
     window: Optional[int] = None,
-) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors.  Raises on anything it does not take."""
+    return_lse: bool = False,
+):
+    """Launch the kernel on CUDA tensors.  Raises on anything it does not take.
+
+    With ``return_lse`` also returns each row's log-sum-exp ``[B, Hq, Sq]``
+    fp32 (natural-log units of the scaled logits; ``-0.7 * float32 max`` for a
+    row that sees no key), which the backward needs."""
+    _check(q, k, v, window)
+    _check_cuda(q)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    lib = load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fa_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, Hq, Hkv, Sq, Skv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            int(causal), window or 0, math.log2(math.e) / math.sqrt(D),
+            VARIANT_CODES[variant(q.dtype, D)], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} "
+                           f"({lib.fa_error_string(err).decode()})")
+    return (out, lse) if return_lse else out
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
+    """Raise on what the kernels do not take, the device apart."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.ndim != 4:
             raise ValueError(f"{name} must be [B, H, S, D], got {tuple(x.shape)}")
@@ -111,19 +177,60 @@ def flash_attention_fwd(
         # and strides that are multiples of 16 bytes
         raise ValueError("bfloat16 q, k and v must start, and have every row "
                          "start, on a 16-byte boundary (TMA, cp.async)")
+
+
+def _check_cuda(q: torch.Tensor) -> None:
     if not q.is_cuda:
         raise ValueError(f"q, k and v must be CUDA tensors, got {q.device}")
-    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
-    lib = load()
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,            # [B, Hq, Sq, D]
+    k: torch.Tensor,            # [B, Hkv, Skv, D]
+    v: torch.Tensor,
+    out: torch.Tensor,          # [B, Hq, Sq, D], the forward's
+    lse: torch.Tensor,          # [B, Hq, Sq] fp32, the forward's
+    do: torch.Tensor,           # [B, Hq, Sq, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward on CUDA tensors: (dq, dk, dv) in q's type, dk and
+    dv summed over each KV head's query heads.  Raises on anything it does
+    not take."""
+    _check(q, k, v, window)
+    if out.shape != q.shape or do.shape != q.shape or \
+            out.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must have q's shape and "
+                         f"type, {tuple(q.shape)} {q.dtype}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [B, Hq, Sq] float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    _check_cuda(q)
+    # out and dO only need rows with a unit last stride (and, for bf16, on
+    # 16-byte boundaries): anything else is copied once here
+    out, do = (x if x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or _aligned16(x))
+               else x.contiguous() for x in (out, do))
+    lse = lse.contiguous()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hkv, Skv, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = load_bwd()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fa_fwd(
+        err = lib.fa_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            int(causal), window or 0, math.log2(math.e) / math.sqrt(D),
-            VARIANT_CODES[variant(q.dtype, D)], stream)
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Hq, Hkv, Sq, Skv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], *do.stride()[:3],
+            int(causal), window or 0, 1.0 / math.sqrt(D),
+            VARIANT_CODES_BWD[variant_bwd(q.dtype, D)], stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} "
-                           f"({lib.fa_error_string(err).decode()})")
-    return out
+        raise RuntimeError(f"flash_bwd launch failed: CUDA error {err} "
+                           f"({lib.fa_bwd_error_string(err).decode()})")
+    return dq, dk, dv

@@ -28,7 +28,16 @@ def ssd(
 
     ``ssd.launches`` counts the calls that went to the CUDA kernels, one per
     call whatever the variant: the bf16 serving variant launches two CUDA
-    kernels a call (``kernel.VARIANT_KERNELS``)."""
+    kernels a call (``kernel.VARIANT_KERNELS``).
+
+    The scan has no backward kernel yet: with grad mode on and an input that
+    requires grad it raises, rather than hand autograd a result without a
+    gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, A, B_, C, D, init_state)):
+        raise NotImplementedError(
+            "the SSD scan has no backward yet (ROADMAP K2b): call it under "
+            "torch.no_grad(), or on inputs that do not require grad")
     if x.device.type == "cpu":
         y, state = ssd_chunked_ref(x, dt, A, B_, C, chunk=chunk,
                                    init_state=init_state)

@@ -178,8 +178,33 @@ def get_model(cfg: ModelConfig):
                      f"have {sorted(_REGISTRY)}")
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts and lists, in JAX's order: dict keys
+    sorted, lists in order.  Two trees of one structure give their leaves in
+    the same order whatever order their dicts were built in."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    children = [tree[k] for k in sorted(tree)] if isinstance(tree, dict) else tree
+    return [leaf for c in children for leaf in tree_leaves(c)]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees of the same
+    structure in ``rest``, visited in ``tree_leaves`` order; a new tree of the
+    results."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves``, given in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def param_count(params) -> int:
-    if isinstance(params, torch.Tensor):
-        return params.numel()
-    children = params.values() if isinstance(params, dict) else params
-    return sum(param_count(c) for c in children)
+    return sum(x.numel() for x in tree_leaves(params))

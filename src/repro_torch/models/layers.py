@@ -7,21 +7,26 @@ Conventions
 * All matmuls run in ``cfg.compute_dtype`` (bf16); softmax and norms
   accumulate in fp32.
 * Attention has two implementations:
-    - ``kernel`` : the hand-written CUDA flash-attention forward (its plain
-      version on a CPU tensor), taken for prefill;
+    - ``kernel`` : the hand-written CUDA flash-attention kernels (their plain
+      versions on a CPU tensor), taken for prefill and for training, whose
+      backward is the backward kernel;
     - ``dense``  : full [Sq, Skv] logits in torch ops, taken for the decode
       step and for whatever the kernel does not cover (explicit positions,
       softcap, a dynamic cache length).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import NEG_INF as _NEG_INF
 from repro_torch.models.common import ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -106,7 +111,6 @@ def rope_for(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torc
 # Attention cores
 # ---------------------------------------------------------------------------
 
-_NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _INT32_MAX = int(torch.iinfo(torch.int32).max)
 
 
@@ -341,3 +345,60 @@ def unembed(cfg: ModelConfig, p_embed: dict, p_head, x: torch.Tensor) -> torch.T
     w = p_embed["tok"].T if (cfg.tie_embeddings or p_head is None) else p_head
     logits = x @ w.to(x.dtype)
     return logits.float() if cfg.logits_fp32 else logits
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 z_weight: float = 1e-4) -> torch.Tensor:
+    """Cross-entropy with z-loss; labels == -100 are masked.  fp32 accumulation."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = lse - gold
+    zl = torch.square(lse)
+    mask = (labels >= 0).float()
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(nll * mask) / denom + z_weight * torch.sum(zl * mask) / denom
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing (the JAX package's remat policies)
+# ---------------------------------------------------------------------------
+
+# "dots": products without batch dimensions are kept (x @ W folds to a 2-D
+# mm); everything else, attention's batched products included, is recomputed
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(cfg: ModelConfig, fn: Callable, sublayer: bool = False) -> Callable:
+    """Wrap ``fn`` in ``torch.utils.checkpoint`` per ``cfg.remat``; values
+    are unchanged, only what the backward recomputes.
+
+    ``fn`` is a layer body (``sublayer=False``) or the attention or FFN half
+    of one (``sublayer=True``).  ``none``: no checkpoint.  ``full``: the whole
+    layer is recomputed.  ``dots``: the layer is recomputed except the
+    products without batch dimensions (``checkpoint_dots_with_no_batch_dims``).
+    ``comm`` / ``comm_lite`` save the outputs of attention and FFN
+    (``attn_out``, ``ffn_out``) and recompute the rest: on one device, each
+    half checkpointed on its own.  (On a mesh the two also differ in keeping
+    the gathered FSDP weights, which one device does not have.)"""
+    if cfg.remat not in ("none", "full", "dots", "comm", "comm_lite"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if sublayer != (cfg.remat in ("comm", "comm_lite")) or cfg.remat == "none":
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _save_products)
+                  if cfg.remat == "dots" else None)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return wrapped

@@ -24,23 +24,36 @@ def init_layer(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
 
 def layer_fwd(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions,
               kv_state=None, window=None):
-    h = L.apply_norm(cfg, lp["ln1"], x)
-    a, new_state = L.attn_block(cfg, lp["attn"], h, positions,
-                                causal=True, window=window, kv_state=kv_state)
+    """One block -> (x, new kv state).  Under autograd the attention half and
+    the FFN half each run under ``remat_wrap``'s sublayer checkpoint (the
+    ``comm`` policies; a no-op under the others and without grad)."""
+    def attn_half(x):
+        h = L.apply_norm(cfg, lp["ln1"], x)
+        return L.attn_block(cfg, lp["attn"], h, positions, causal=True,
+                            window=window, kv_state=kv_state)
+
+    def ffn_half(x):
+        # a parallel-residual block feeds the FFN the attention's norm of x
+        norm = lp["ln1"] if cfg.parallel_residual else lp["ln2"]
+        return L.ffn(cfg, lp["ffn"], L.apply_norm(cfg, norm, x))
+
+    attn_half = L.remat_wrap(cfg, attn_half, sublayer=True)
+    ffn_half = L.remat_wrap(cfg, ffn_half, sublayer=True)
+    a, new_state = attn_half(x)
     if cfg.parallel_residual:
-        f = L.ffn(cfg, lp["ffn"], h)
-        x = x + a + f
-    else:
-        x = x + a
-        x = x + L.ffn(cfg, lp["ffn"], L.apply_norm(cfg, lp["ln2"], x))
-    return x, new_state
+        return x + a + ffn_half(x), new_state
+    x = x + a
+    return x + ffn_half(x), new_state
 
 
 @register("dense")
 class DenseTransformer:
-    """Public API: init / forward / logits / prefill / decode_step / init_cache.
+    """Public API: init / forward / logits / loss / prefill / decode_step /
+    init_cache.
 
-    The inference methods run under ``torch.no_grad()``."""
+    The inference methods (``forward``, ``logits``, ``prefill``,
+    ``decode_step``) run under ``torch.no_grad()``; ``loss`` runs the
+    grad-enabled ``_forward`` and ``_logits``."""
 
     # -- params -----------------------------------------------------------
     @staticmethod
@@ -64,19 +77,42 @@ class DenseTransformer:
 
     # -- forward ------------------------------------------------------------
     @staticmethod
+    def _forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """tokens [B,S] -> final hidden [B,S,D], differentiable; each layer
+        under ``cfg.remat`` when grad mode is on."""
+        x = L.embed(cfg, params["embed"], tokens)
+        for lp in params["layers"]:
+            def body(x, lp=lp):
+                return layer_fwd(cfg, lp, x, positions, window=cfg.window)[0]
+            x = L.remat_wrap(cfg, body)(x)
+        return L.apply_norm(cfg, params["final_norm"], x)
+
+    @staticmethod
+    def _logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
+        return L.unembed(cfg, params["embed"], params.get("lm_head"), hidden)
+
+    @staticmethod
     @torch.no_grad()
     def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens [B,S] -> final hidden [B,S,D]."""
-        x = L.embed(cfg, params["embed"], tokens)
-        for lp in params["layers"]:
-            x, _ = layer_fwd(cfg, lp, x, positions, window=cfg.window)
-        return L.apply_norm(cfg, params["final_norm"], x)
+        return DenseTransformer._forward(cfg, params, tokens, positions)
 
     @staticmethod
     @torch.no_grad()
     def logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-        return L.unembed(cfg, params["embed"], params.get("lm_head"), hidden)
+        return DenseTransformer._logits(cfg, params, hidden)
+
+    @staticmethod
+    def loss(cfg: ModelConfig, params: Dict, batch: Dict):
+        """Next-token cross-entropy with z-loss of ``batch`` ({"tokens",
+        "labels"[, "positions"]}) -> (loss, {"loss": loss})."""
+        hidden = DenseTransformer._forward(cfg, params, batch["tokens"],
+                                           batch.get("positions"))
+        logits = DenseTransformer._logits(cfg, params, hidden)
+        loss = L.softmax_xent(logits, batch["labels"])
+        return loss, {"loss": loss}
 
     # -- inference ------------------------------------------------------------
     @staticmethod

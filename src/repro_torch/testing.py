@@ -56,6 +56,41 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     return params
 
 
+def from_jax_opt_state(cfg: ModelConfig, state: dict, device="cuda") -> dict:
+    """The JAX package's AdamW state (``m`` and ``v`` in the parameter tree's
+    layout, layers stacked; ``step``) as the port's: ``m`` and ``v`` as
+    ``from_jax_params`` lays out parameters (fp32), ``step`` an int32 scalar
+    tensor."""
+    device = resolve_device(device)
+    return {"m": from_jax_params(cfg, state["m"], device),
+            "v": from_jax_params(cfg, state["v"], device),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=device)}
+
+
+def to_jax_layout(cfg: ModelConfig, params: dict) -> dict:
+    """The port's parameter tree (or a tree of the same structure: grads,
+    moments) in the JAX package's layout: nested dicts of float32 numpy
+    arrays, the per-layer list stacked on a leading axis of length
+    ``num_layers``, so it can be compared leaf by leaf with a JAX tree."""
+    def convert(tree):
+        if isinstance(tree, dict):
+            return {k: convert(v) for k, v in tree.items()}
+        return to_numpy(tree)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"{len(params['layers'])} layers, config has "
+                         f"{cfg.num_layers}")
+    out = {k: convert(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = stack([convert(lp) for lp in params["layers"]])
+    return out
+
+
 def rel_err(a, b) -> float:
     """max|a - b| / (max|b| + 1e-9), in float32."""
     a = to_numpy(a) if isinstance(a, torch.Tensor) else np.asarray(a, np.float32)

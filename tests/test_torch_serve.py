@@ -354,13 +354,17 @@ def test_ssd_kernel_takes_the_full_width_ssm_shape():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "examples" / "serve_batch_torch.py",
-              REPO / "scripts" / "profile_torch_serve.py"]
+              REPO / "examples" / "quickstart_torch.py",
+              REPO / "scripts" / "profile_torch_serve.py",
+              REPO / "scripts" / "train_lr_sweep.py"]
     assert len(files) > 25
     scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
                for p in files if "repro_torch" in p.parts}
     assert {"models/mamba2.py", "configs/mamba2_1p3b.py", "kernels/_build.py",
             "kernels/ssd_scan/ref.py", "kernels/ssd_scan/kernel.py",
-            "kernels/ssd_scan/ops.py"} <= scanned
+            "kernels/ssd_scan/ops.py", "optim/adamw.py", "data/pipeline.py",
+            "core/estimator.py", "launch/train.py"} <= scanned
+    assert all(p.is_file() for p in files)
     banned = re.compile(
         r"^\s*(import\s+(jax|flax|repro)(\.|\s|,|$)|from\s+(jax|flax|repro)(\.|\s))",
         re.MULTILINE)

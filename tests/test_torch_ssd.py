@@ -143,6 +143,23 @@ def test_cpu_path_counts_no_launch():
     assert ssd.launches == before
 
 
+@pytest.mark.parametrize("which", [0, 1, 3, 5])
+def test_ssd_refuses_autograd_without_a_backward(which):
+    """The scan has no backward kernel: with grad mode on and an input that
+    requires grad (x, dt, B or D here) it raises instead of returning a
+    result that autograd would give no gradient; without grad mode, or under
+    no_grad, it serves as before."""
+    arrs = [to_torch(a) for a in _inputs(*SHAPES[0][:6], "float32")]
+    D = torch.ones(arrs[0].shape[2])
+    args = arrs + [D]
+    plain = ssd(*args, chunk=32)
+    args[which] = args[which].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssd(*args, chunk=32)
+    with torch.no_grad():
+        assert torch.equal(ssd(*args, chunk=32), plain)
+
+
 @pytest.mark.parametrize("bad,message", [
     ("cpu_tensor", "CUDA tensors"), ("float16", "dtype"),
     ("dt_bf16", "float32"), ("mixed_bc", "dtype of x"),
