@@ -9,12 +9,14 @@ scan) from the sources in this checkout, holds each against its plain
 PyTorch version on the card (naming the CUDA kernels that each call launched,
 as the C functions count them), serves tinyllama-1.1b and mamba2-1.3b at full
 width (random weights from a seed: batch 8 x prompt 1024, 64 generated
-tokens) through the port's prefill and decode steps, trains tinyllama-1.1b at
-full width and depth (batch 8 x 1024, a few AdamW steps through the port's
-train step), holds the kernel paths against the dense paths, and checks the
-results.  Every phase prints one JSON line; any failure raises, so the exit
-code is not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a
-CUDA device it prints no result and exits with code 1.
+tokens) through the port's prefill and decode steps, times the attention
+backward in turns against its earlier variant and PyTorch's fused backends,
+trains tinyllama-1.1b at full width and depth (batch 8 x 1024, a few AdamW
+steps through the port's train step), holds the kernel paths against the
+dense paths (fp32, and bf16 for the gradients), and checks the results.
+Every phase prints one JSON line; any failure raises, so the exit code is
+not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
+device it prints no result and exits with code 1.
 """
 from __future__ import annotations
 
@@ -62,14 +64,29 @@ BWD_SHAPES = [
     (2, 4, 4, 150, 150, 80),      # stablelm-3b's head dim, ragged
     (2, 4, 2, 200, 200, 128),     # GQA + ragged at head dim 128
     (1, 8, 2, 96, 40, 32),        # Skv < Sq
+    # the edges of the wgmma variant (128-row items, 64-row tiles), at both
+    # of its head dims
+    (1, 2, 2, 40, 40, 64),        # Sq below one tile
+    (1, 2, 1, 40, 40, 128),
+    (1, 4, 2, 257, 257, 64),      # neither length a multiple of 128
+    (1, 4, 2, 257, 130, 128),     # and Skv < Sq
+    (1, 16, 1, 300, 300, 64),     # MQA, a group of 16
+    (1, 16, 1, 300, 300, 128),
 ]
 BWD_MASKS = [(True, None), (False, None), (True, 48), (False, 16)]
 # dq, dk, dv relative to max|plain|: fp32 sums in another order than the
 # plain version's over up to 200 keys and 4 query heads a KV head; bf16
 # rounds P and dS to bf16 for the second products
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# the training shape: tinyllama-1.1b's attention at batch 8 x sequence 1024
+# the training shape: tinyllama-1.1b's attention at batch 8 x sequence 1024;
+# and llama3.2-3b's at head dim 128, the wgmma backward's other head dim
 TRAIN_ATTN_SHAPE = (8, 32, 4, 1024, 1024, 64)
+BWD_D128_SHAPE = (8, 24, 8, 1024, 1024, 128)
+# PyTorch's fused attention backends whose backward is timed as the library
+# call (the fastest one is library_ms)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+# bf16 training parity: each gradient leaf, kernel path against dense path
+BF16_GRAD_TOL = 5e-2
 
 # (B, S, H, P, G, N, chunk) of the SSD scan: the sweep of the JAX package's
 # kernel tests (the fp32-pipe kernel in both types), then chunks 64, 128 (the
@@ -351,6 +368,70 @@ def attention_bwd_bound_ms(q, k, v, causal, window):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bwd_seven_products_ms(q, k, causal, window):
+    """The operations of the two-kernel design over the peak rate: S and dP
+    are computed in both the dQ and the dK/dV kernel, seven products over the
+    visible pairs for the five of `attention_bwd_bound_ms`."""
+    B, Hq, Sq, D = q.shape
+    flops = 14 * B * Hq * D * visible_pairs(Sq, k.shape[2], causal, window)
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return flops / peak * 1e3
+
+
+def sdpa_backward(q, k, v, do, causal, backend: str):
+    """The backward alone of `F.scaled_dot_product_attention` under one
+    backend, replayed on a graph saved once; K and V are repeated to Hq heads
+    first where the backend refuses `enable_gqa`.  None where the backend
+    takes neither.  The yardstick, used nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    group = q.shape[1] // k.shape[1]
+    for gqa in (True, False):
+        kk, vv = (k, v) if gqa else (k.repeat_interleave(group, 1),
+                                     v.repeat_interleave(group, 1))
+        ins = [x.detach().requires_grad_() for x in (q, kk, vv)]
+        try:
+            with sdpa_kernel(getattr(SDPBackend, backend)):
+                out = F.scaled_dot_product_attention(*ins, is_causal=causal,
+                                                     enable_gqa=gqa)
+            torch.autograd.grad(out, ins, do, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def call(out=out, ins=ins, gqa=gqa):
+            dq, dk, dv = torch.autograd.grad(out, ins, do, retain_graph=True)
+            if not gqa:   # the sum over each KV head's query heads
+                B, Hq, S, D = dk.shape
+                dk = dk.view(B, Hq // group, group, S, D).sum(2)
+                dv = dv.view(B, Hq // group, group, S, D).sum(2)
+            return dq, dk, dv
+        return call, gqa
+    return None, None
+
+
+def device_split(fn, calls: int = 10) -> dict:
+    """Device time of each CUDA kernel that `calls` runs of `fn` launch, by
+    torch.profiler: ms a call and share of the total."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        if us > 0:
+            name = evt.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            times[name.split("(")[0]] = us / 1e3 / calls
+    total = sum(times.values())
+    return {name: {"ms": ms, "share": ms / total if total else None}
+            for name, ms in times.items()}
+
+
 def phase_attention_bwd() -> dict:
     """K1b: the backward kernel against its plain version over the sweep,
     the forward's log-sum-exp against the plain one, and the backward timed
@@ -392,10 +473,11 @@ def phase_attention_bwd() -> dict:
                     lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                                    window=window, return_lse=True),
                     fa, fa.variant(dtype, D))
+                bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+                    q, k, v, out, lse, do, causal=causal, window=window)
                 grads, ran, _ = launched_variant(
-                    lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                                   causal=causal, window=window),
-                    fa, fa.variant_bwd(dtype, D), fa.VARIANT_KERNELS_BWD)
+                    bwd, fa, fa.variant_bwd(dtype, D), fa.VARIANT_KERNELS_BWD)
+                again = bwd()
                 ref = attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                         window=window)
                 errs = [rel_err(g, r) for g, r in zip(grads, ref)]
@@ -405,53 +487,111 @@ def phase_attention_bwd() -> dict:
                         "dq_rel_err": errs[0], "dk_rel_err": errs[1],
                         "dv_rel_err": errs[2], "tol": BWD_TOL[dtype],
                         "lse_rel_err": lse_err(lse_k, lse), "lse_tol": TOL[dtype],
-                        "rows_without_key": int(blind.sum())}
+                        "rows_without_key": int(blind.sum()),
+                        "equal_run_to_run": all(torch.equal(a, b)
+                                                for a, b in zip(grads, again))}
                 cases.append(case)
+                wgmma = dtype == torch.bfloat16 and D in fa.WGMMA_HEAD_DIMS
                 if not (max(errs) < BWD_TOL[dtype] and case["lse_rel_err"] < TOL[dtype]
                         and all(bool(torch.isfinite(g).all()) for g in grads)
-                        and float(grads[0][blind].abs().sum()) == 0.0):
+                        and float(grads[0][blind].abs().sum()) == 0.0
+                        and case["equal_run_to_run"]
+                        and (ran == "fa_bwd_wgmma") == wgmma):
                     raise AssertionError(f"flash_attention_bwd disagrees: {case}")
 
-    # the training shape: tinyllama-1.1b's attention, bf16, causal
-    q, k, v, out, lse, do = inputs(TRAIN_ATTN_SHAPE, torch.bfloat16, True, None)
-    grads, ran, n_kernels = launched_variant(
-        lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True), fa,
-        fa.variant_bwd(torch.bfloat16, 64), fa.VARIANT_KERNELS_BWD)
-    ref = attention_bwd_ref(q, k, v, out, lse, do, causal=True)
-    errs = [rel_err(g, r) for g, r in zip(grads, ref)]
-    abs_err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(grads, ref))
-    _, lse_k = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
-    main_lse_err = lse_err(lse_k, lse)
-    if not (max(errs) < BWD_TOL[torch.bfloat16] and main_lse_err < TOL[torch.bfloat16]):
-        raise AssertionError(f"training shape disagrees: {errs}, lse {main_lse_err}")
-    # the library call: the backward alone of PyTorch's fused attention,
-    # replayed on a saved graph
-    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                             enable_gqa=True)
-    library = lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,  # noqa: E731
-                                          retain_graph=True)
-    lib_err = max(rel_err(g, r) for g, r in zip(library(), ref))
-    bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)  # noqa: E731
-    plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, causal=True), 3, 1)
-    kernel_ms = time_ms(bwd, 20)
-    library_ms = time_ms(library, 20)
-    kernel_ms = min(kernel_ms, time_ms(bwd, 20))
-    bound_ms, bound_by = attention_bwd_bound_ms(q, k, v, True, None)
-    # the forward at the same shape, without and with the log-sum-exp, in turns
+    def measure(shape) -> dict:
+        """bf16 causal at a full-width training shape: error, the kernel
+        (variant_bwd's) timed in turns with the PR-14 kernel and with the
+        fastest SDPA backend, each backend alone, the split between the CUDA
+        kernels, and the bounds."""
+        B, Hq, Hkv, Sq, Skv, D = shape
+        q, k, v, out, lse, do = inputs(shape, torch.bfloat16, True, None)
+        grads, ran, n_kernels = launched_variant(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True), fa,
+            fa.variant_bwd(torch.bfloat16, D), fa.VARIANT_KERNELS_BWD)
+        ref = attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+        errs = [rel_err(g, r) for g, r in zip(grads, ref)]
+        abs_err = max(float((g.float() - r.float()).abs().max())
+                      for g, r in zip(grads, ref))
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        _, lse_k = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+        main_lse_err = lse_err(lse_k, lse)
+        if not (max(errs) < BWD_TOL[torch.bfloat16]
+                and main_lse_err < TOL[torch.bfloat16] and equal
+                and ran == "fa_bwd_wgmma" and n_kernels == 2):
+            raise AssertionError(f"training shape {shape} disagrees: {errs}, "
+                                 f"lse {main_lse_err}, equal {equal}, {ran} "
+                                 f"with {n_kernels} CUDA kernels")
+        earlier = "fa_bwd_bf16_mma"   # the PR-14 kernel, at every bf16 head dim
+        kernel = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, lse, do, causal=True)
+        mma = lambda: fa.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, lse, do, causal=True, variant=earlier)
+        mma_err = max(rel_err(g, r) for g, r in zip(mma(), ref))
+        # every SDPA backend that takes the inputs, alone, then the fastest
+        # in turns with the two kernels: new, earlier, library, library,
+        # earlier, new
+        backends, library_errs = {}, {}
+        calls = {}
+        for name in SDPA_BACKENDS:
+            call, gqa = sdpa_backward(q, k, v, do, True, name)
+            if call is None:
+                backends[name] = None
+                continue
+            calls[name] = call
+            library_errs[name] = max(rel_err(g, r) for g, r in zip(call(), ref))
+            backends[name] = {"ms": time_ms(call, 20), "enable_gqa": gqa}
+        timed = [n for n in SDPA_BACKENDS if backends[n] is not None]
+        best = min(timed, key=lambda n: backends[n]["ms"]) if timed else None
+        turns = [("kernel", kernel), ("earlier", mma)]
+        if best is not None:
+            turns.append(("library", calls[best]))
+        order = turns + turns[::-1]
+        ms, in_turns = {name: [] for name, _ in turns}, []
+        for name, fn in order:
+            ms[name].append(time_ms(fn, 20))
+            in_turns.append([name, ms[name][-1]])
+        plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do,
+                                                     causal=True), 3, 1)
+        bound_ms, bound_by = attention_bwd_bound_ms(q, k, v, True, None)
+        seven_ms = attention_bwd_seven_products_ms(q, k, True, None)
+        split = device_split(kernel)
+        kernel_ms = min(ms["kernel"])
+        if shape == TRAIN_ATTN_SHAPE and not kernel_ms < min(ms["earlier"]):
+            raise AssertionError(f"{ran} is not faster than {earlier}: {in_turns}")
+        return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+                "variant": ran, "cuda_kernels_per_call": n_kernels,
+                "dq_rel_err": errs[0], "dk_rel_err": errs[1], "dv_rel_err": errs[2],
+                "max_abs_err": abs_err, "lse_rel_err": main_lse_err,
+                "equal_run_to_run": equal,
+                "tol": BWD_TOL[torch.bfloat16], "kernel_ms": kernel_ms,
+                "cuda_kernels": split,
+                "earlier_variant": earlier, "earlier_ms": min(ms["earlier"]),
+                "earlier_rel_err": mma_err,
+                "speedup_over_earlier": min(ms["earlier"]) / kernel_ms,
+                "ms_in_turns": in_turns,
+                "plain_ms": plain_ms,
+                "library_ms": min(ms["library"]) if best else None,
+                "library_backend": best, "library_backends": backends,
+                "library_rel_err": library_errs,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms_seven_products": seven_ms,
+                "goal_ms": 0.50 if shape == TRAIN_ATTN_SHAPE else None}
+
+    main = measure(TRAIN_ATTN_SHAPE)
+    d128 = measure(BWD_D128_SHAPE)
+    # the forward at the training shape, without and with the log-sum-exp,
+    # in turns
+    B, Hq, Hkv, Sq, Skv, D = TRAIN_ATTN_SHAPE
+    q, k, v = make((B, Hq, Sq, D), torch.bfloat16), \
+        make((B, Hkv, Skv, D), torch.bfloat16), make((B, Hkv, Skv, D), torch.bfloat16)
     fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
     fwd_lse = lambda: fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)  # noqa: E731
     fwd_ms = [time_ms(fwd, 50), time_ms(fwd_lse, 50), time_ms(fwd_lse, 50), time_ms(fwd, 50)]
-    main = {"shape": list(TRAIN_ATTN_SHAPE), "dtype": "bfloat16", "causal": True,
-            "variant": ran, "cuda_kernels_per_call": n_kernels,
-            "dq_rel_err": errs[0], "dk_rel_err": errs[1], "dv_rel_err": errs[2],
-            "max_abs_err": abs_err, "lse_rel_err": main_lse_err,
-            "tol": BWD_TOL[torch.bfloat16], "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_rel_err": lib_err, "bound_ms": bound_ms, "bound_by": bound_by,
-            "fwd_ms_without_lse": min(fwd_ms[0], fwd_ms[3]),
-            "fwd_ms_with_lse": min(fwd_ms[1], fwd_ms[2]),
-            "fwd_ms_in_turns": fwd_ms}
+    main.update({"fwd_ms_without_lse": min(fwd_ms[0], fwd_ms[3]),
+                 "fwd_ms_with_lse": min(fwd_ms[1], fwd_ms[2]),
+                 "fwd_ms_in_turns": fwd_ms})
     emit("kernels", name="flash_attention_bwd", sweep=cases,
          max_rel_err_fp32=max(max(c["dq_rel_err"], c["dk_rel_err"], c["dv_rel_err"])
                               for c in cases if c["dtype"] == "float32"),
@@ -461,7 +601,9 @@ def phase_attention_bwd() -> dict:
                                   if c["dtype"] == "float32"),
          max_lse_rel_err_bf16=max(c["lse_rel_err"] for c in cases
                                   if c["dtype"] == "bfloat16"),
-         main_path_shape=main)
+         variants={v: sum(c["variant"] == v for c in cases)
+                   for v in fa.VARIANT_CODES_BWD},
+         main_path_shape=main, head_dim_128=d128)
     return main
 
 
@@ -645,6 +787,7 @@ def phase_train() -> dict:
     them: K1 twice a layer a step (the forward, and again under the full
     remat's recompute), K1b once, K2 never."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.launch.steps import make_train_step
@@ -667,6 +810,8 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = flash_attention.bwd_launches = ssd.launches = 0
+    fa.flash_attention_bwd.copies = 0
+    before = fa.launch_counts()
     times = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -676,13 +821,21 @@ def phase_train() -> dict:
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches,
               "ssd_scan_fwd": ssd.launches}
+    cuda_kernels = {k: n - before[k] for k, n in fa.launch_counts().items()
+                    if n != before[k]}
+    bwd_copies = fa.flash_attention_bwd.copies
     peak = torch.cuda.max_memory_allocated()
     expected = {"flash_attention_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
                 "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS,
                 "ssd_scan_fwd": 0}
-    if counts != expected:
-        raise AssertionError(f"kernel launches {counts} in {TRAIN_STEPS} train "
-                             f"steps of {cfg.num_layers} layers, expected {expected}")
+    # K1b through the wgmma variant's two CUDA kernels, once each a call
+    bwd_kernels = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(cfg.compute_dtype,
+                                                        cfg.resolved_head_dim)]
+    if counts != expected or any(cuda_kernels.get(k) != expected["flash_attention_bwd"]
+                                 for k in bwd_kernels):
+        raise AssertionError(f"kernel launches {counts} ({cuda_kernels}) in "
+                             f"{TRAIN_STEPS} train steps of {cfg.num_layers} "
+                             f"layers, expected {expected} and {bwd_kernels}")
     timed = losses[1:]
     if not all(math.isfinite(x) for x in losses) or timed[-1] >= losses[0] or \
             any(b >= a for a, b in zip(timed, timed[1:])):
@@ -699,9 +852,49 @@ def phase_train() -> dict:
               "peak_memory_bytes": peak,
               "param_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
               "moment_bytes": 2 * 4 * n_params, "fp32_grad_bytes": 4 * n_params,
-              "launches_by_kernel": counts}
+              "launches_by_kernel": counts, "cuda_kernel_launches": cuda_kernels,
+              "bwd_calls_that_copied_out_or_do": bwd_copies}
     emit("train", **result)
     return result
+
+
+def phase_train_parity_bf16() -> None:
+    """The gradients of tinyllama-1.1b at full width, 2 layers, in bf16 (the
+    config's types), kernel path against dense path: the path the fp32 run
+    cannot reach, K1b's wgmma variant.  Each gradient leaf within
+    BF16_GRAD_TOL, relative to its dense max."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.common import get_model
+    from repro_torch.testing import rel_err
+
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=2)
+    if cfg.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"{TRAIN_ARCH} computes in {cfg.compute_dtype}")
+    dense = cfg.replace(attn_impl="dense")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    params = get_model(cfg).init(cfg, gen, "cuda")
+    batch = _train_batch(cfg)
+    before = fa.launch_counts()
+    loss_k, grads_k = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in fa.launch_counts().items() if n != before[k]}
+    loss_d, grads_d = loss_and_grads(dense, params, batch)
+    grad_errs = [rel_err(a, b) for a, b in zip(grads_k, grads_d)]
+    loss_err = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
+    result = {"arch": TRAIN_ARCH, "layers": 2, "dtype": "bfloat16",
+              "loss_rel_err": loss_err, "max_grad_rel_err": max(grad_errs),
+              "median_grad_rel_err": sorted(grad_errs)[len(grad_errs) // 2],
+              "leaves": len(grad_errs), "cuda_kernels": ran,
+              "tol": BF16_GRAD_TOL}
+    emit("train_parity_on_card", **result)
+    expected = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(torch.bfloat16,
+                                                     cfg.resolved_head_dim)]
+    if not (max(grad_errs) < BF16_GRAD_TOL and loss_err < BF16_GRAD_TOL
+            and all(ran.get(k) == cfg.num_layers for k in expected)):
+        raise AssertionError(f"bf16 training: kernel path and dense path "
+                             f"disagree: {result}")
 
 
 def phase_train_parity_on_card() -> None:
@@ -778,6 +971,7 @@ def main() -> int:
     k1b = phase_attention_bwd()
     trained = phase_train()
     phase_train_parity_on_card()
+    phase_train_parity_bf16()
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
@@ -786,7 +980,7 @@ def main() -> int:
     # counts calls of the op on the main path; `variant` and
     # `cuda_kernels_per_call` are what the C function counted one call launch
     # at the main path's shape (the SSD scan's wgmma variant: the state pass,
-    # then the outputs; the backward: delta, dK/dV, dQ)
+    # then the outputs; the backward's: dQ with delta, then dK/dV)
     rows = []
     for name, module, replaces, numbers, arch in (
             ("flash_attention_fwd", fa,

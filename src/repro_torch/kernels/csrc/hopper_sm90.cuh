@@ -154,6 +154,21 @@ __device__ __forceinline__ int warp_index() {
   return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
 }
 
+// Moves this warpgroup's register budget to N a thread (a multiple of 8,
+// 24..256); every warp of the warpgroup runs it.  A producer warpgroup gives
+// registers back with _dec, consumer warpgroups take them with _inc, which
+// waits until the block's pool holds them: the sum over the block's threads
+// must stay within what the launch gave it.  With a single producer warp
+// (not a whole warpgroup) the pool never balances and _inc waits forever.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // -- wgmma --------------------------------------------------------------------
 
 // Descriptor of a 128-byte-swizzled operand starting at `smem` (see above).
@@ -411,6 +426,39 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank,
             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A [B, H, S, D] bf16 tensor with element strides as a 4-D tensor map:
+// dimension 0 the head dim, 1 and 2 the sequence and the head in the order of
+// their strides (a [B, S, H, D] projection viewed as [B, H, S, D] has the
+// head's stride the smaller; *s_first says which), 3 the batch; a box is 64
+// columns of `rows` rows of one head.
+inline bool map_bhsd(CUtensorMap* map, const void* ptr, int batch, int heads,
+                     int seq, int d, long long sb, long long sh, long long ss,
+                     int rows, int* s_first) {
+  *s_first = ss <= sh;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(*s_first ? seq : heads),
+                              static_cast<cuuint64_t>(*s_first ? heads : seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(2 * (*s_first ? ss : sh)),
+      static_cast<cuuint64_t>(2 * (*s_first ? sh : ss)),
+      static_cast<cuuint64_t>(2 * sb)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(*s_first ? rows : 1),
+                             static_cast<cuuint32_t>(*s_first ? 1 : rows), 1};
+  return make_map_bf16(map, ptr, 4, dims, strides, box);
+}
+
+// The card's SM count, read once: the size of a persistent grid.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
 }
 
 }  // namespace

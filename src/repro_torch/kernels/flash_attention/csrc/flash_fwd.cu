@@ -785,27 +785,6 @@ cudaError_t launch(const FaParams& p, int batch, cudaStream_t stream) {
   return counted(cudaGetLastError(), kWhich);
 }
 
-// A [B, H, S, D] tensor with element strides as a 4-D tensor map: dimension
-// 0 the head dim, 1 and 2 the sequence and the head in the order of their
-// strides (a [B, S, H, D] projection viewed as [B, H, S, D] has the head's
-// stride the smaller), 3 the batch; a box is 64 columns of `rows` rows.
-bool map_bhsd(CUtensorMap* map, const void* ptr, int batch, int heads, int seq,
-              int d, long long sb, long long sh, long long ss, int rows,
-              int* s_first) {
-  *s_first = ss <= sh;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(*s_first ? seq : heads),
-                              static_cast<cuuint64_t>(*s_first ? heads : seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(2 * (*s_first ? ss : sh)),
-      static_cast<cuuint64_t>(2 * (*s_first ? sh : ss)),
-      static_cast<cuuint64_t>(2 * sb)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(*s_first ? rows : 1),
-                             static_cast<cuuint32_t>(*s_first ? 1 : rows), 1};
-  return make_map_bf16(map, ptr, 4, dims, strides, box);
-}
-
 template <int D>
 cudaError_t launch_wgmma(const FaParams& p, int batch, cudaStream_t stream) {
   constexpr size_t smem = wgmma_smem_bytes<D>();
@@ -825,12 +804,7 @@ cudaError_t launch_wgmma(const FaParams& p, int batch, cudaStream_t stream) {
   t.n_q_tiles = (p.sq + WBM - 1) / WBM;
   t.batch = batch;
   // one block per SM (168 registers a thread allow no second), none idle
-  static const int n_sm = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
+  const int n_sm = sm_count();
   const long long n_items = static_cast<long long>(t.n_q_tiles) * p.hq * batch;
   const unsigned grid = static_cast<unsigned>(n_items < n_sm ? n_items : n_sm);
   fa_fwd_wgmma<D><<<grid, 288, smem, stream>>>(tq, tk, tv, p, t);

@@ -3,10 +3,10 @@
 The sources ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` are compiled at
 first use by ``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded
 with ``ctypes``), one library each.  The forward holds three kernels behind
-one C function, the backward two variants of three kernels behind another;
-which runs is fixed by the dtype and the head dim alone: ``variant`` and
-``variant_bwd`` are that rule, and the wrappers pass their choice to the C
-functions, which launch what they are told.
+one C function, the backward three variants of two or three kernels behind
+another; which runs is fixed by the dtype and the head dim alone:
+``variant`` and ``variant_bwd`` are that rule, and the wrappers pass their
+choice to the C functions, which launch what they are told.
 """
 from __future__ import annotations
 
@@ -31,11 +31,15 @@ VARIANT_CODES = {"fa_fwd_simt": 0, "fa_fwd_bf16_mma": 1, "fa_fwd_wgmma": 2}
 # the CUDA kernels one call launches, by variant
 VARIANT_KERNELS = {v: (v,) for v in VARIANT_CODES}
 # the backward's variants (FaBwdVariant in flash_bwd.cu) and their kernels
-VARIANT_CODES_BWD = {"fa_bwd_simt": 0, "fa_bwd_bf16_mma": 1}
+VARIANT_CODES_BWD = {"fa_bwd_simt": 0, "fa_bwd_bf16_mma": 1, "fa_bwd_wgmma": 2}
 VARIANT_KERNELS_BWD = {
     "fa_bwd_simt": ("fa_bwd_delta", "fa_bwd_dkdv_simt", "fa_bwd_dq_simt"),
     "fa_bwd_bf16_mma": ("fa_bwd_delta", "fa_bwd_dkdv_mma", "fa_bwd_dq_mma"),
+    "fa_bwd_wgmma": ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma"),
 }
+# rows of the wgmma backward's items: its row-statistics scratch covers Sq
+# rounded up to a whole item
+_WGMMA_BWD_ROWS = 128
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_bwd: Optional[ctypes.CDLL] = None
@@ -97,11 +101,25 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def variant_bwd(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward that runs for this dtype and head dim: ``fa_bwd_bf16_mma``
-    (bf16: mma.sync) or ``fa_bwd_simt`` (float32, on the fp32 pipes)."""
+    """The backward that runs for this dtype and head dim: ``fa_bwd_wgmma``
+    (bf16 at head dims 64 and 128: wgmma, TMA), ``fa_bwd_bf16_mma`` (bf16 at
+    32 and 80: mma.sync) or ``fa_bwd_simt`` (float32, on the fp32 pipes)."""
     if dtype not in DTYPE_CODES or head_dim not in HEAD_DIMS:
         raise ValueError(f"no kernel for {dtype} at head dim {head_dim}")
-    return "fa_bwd_simt" if dtype == torch.float32 else "fa_bwd_bf16_mma"
+    if dtype == torch.float32:
+        return "fa_bwd_simt"
+    return "fa_bwd_wgmma" if head_dim in WGMMA_HEAD_DIMS else "fa_bwd_bf16_mma"
+
+
+def _bwd_takes(name: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the backward variant ``name`` has a kernel for this dtype and
+    head dim: the wgmma one only at its head dims, the mma.sync one at every
+    bf16 head dim, the fp32-pipe one for float32."""
+    if name == "fa_bwd_simt":
+        return dtype == torch.float32
+    if name == "fa_bwd_bf16_mma":
+        return dtype == torch.bfloat16
+    return dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
 
 
 def _aligned16(x: torch.Tensor) -> bool:
@@ -194,10 +212,17 @@ def flash_attention_bwd(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward on CUDA tensors: (dq, dk, dv) in q's type, dk and
     dv summed over each KV head's query heads.  Raises on anything it does
-    not take."""
+    not take.
+
+    ``variant`` names the kernels to run instead of ``variant_bwd``'s choice,
+    so that two of them can be timed on the same inputs; one that does not
+    take the dtype and head dim raises.  ``flash_attention_bwd.copies``
+    counts the calls that had to copy ``out`` or ``do`` (rows off a 16-byte
+    boundary, or a last dimension that is not contiguous)."""
     _check(q, k, v, window)
     if out.shape != q.shape or do.shape != q.shape or \
             out.dtype != q.dtype or do.dtype != q.dtype:
@@ -209,13 +234,26 @@ def flash_attention_bwd(
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be [B, Hq, Sq] float32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    if variant is None:
+        variant = variant_bwd(q.dtype, D)
+    elif variant not in VARIANT_CODES_BWD or not _bwd_takes(variant, q.dtype, D):
+        raise ValueError(f"backward variant {variant!r} has no kernel for "
+                         f"{q.dtype} at head dim {D}")
     _check_cuda(q)
     # out and dO only need rows with a unit last stride (and, for bf16, on
-    # 16-byte boundaries): anything else is copied once here
-    out, do = (x if x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or _aligned16(x))
-               else x.contiguous() for x in (out, do))
+    # 16-byte boundaries, which TMA and 16-byte loads take): anything else is
+    # copied once here
+    fit = [x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or _aligned16(x))
+           for x in (out, do)]
+    if not all(fit):
+        flash_attention_bwd.copies += 1
+    out, do = (x if ok else x.contiguous() for x, ok in zip((out, do), fit))
     lse = lse.contiguous()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # scratch: delta [B, Hq, Sq]; for the wgmma variant the row statistics
+    # (lse in base 2 and delta) of Sq rounded up to a whole item
+    rows = (-(-Sq // _WGMMA_BWD_ROWS) * _WGMMA_BWD_ROWS * 2
+            if variant == "fa_bwd_wgmma" else Sq)
+    delta = torch.empty((B, Hq, rows), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Skv, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -229,8 +267,11 @@ def flash_attention_bwd(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], *do.stride()[:3],
             int(causal), window or 0, 1.0 / math.sqrt(D),
-            VARIANT_CODES_BWD[variant_bwd(q.dtype, D)], stream)
+            VARIANT_CODES_BWD[variant], stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd launch failed: CUDA error {err} "
                            f"({lib.fa_bwd_error_string(err).decode()})")
     return dq, dk, dv
+
+
+flash_attention_bwd.copies = 0

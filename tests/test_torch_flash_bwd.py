@@ -194,8 +194,12 @@ def test_gqa_gradient_sums_every_query_head_of_the_group():
 @pytest.mark.parametrize("arch", [a for a in PORTED_ARCHS
                                   if get_config(a).family != "ssm"])
 def test_backward_variant_of_every_ported_config(arch):
+    """bf16 at head dims 64 and 128 (tinyllama-1.1b; llama3.2-3b,
+    nemotron-4-15b) runs the wgmma backward, 80 (stablelm-3b) the mma.sync
+    one, float32 always the fp32-pipe one."""
     d = get_config(arch).resolved_head_dim
-    assert fa.variant_bwd(torch.bfloat16, d) == "fa_bwd_bf16_mma"
+    expected = "fa_bwd_wgmma" if d in (64, 128) else "fa_bwd_bf16_mma"
+    assert fa.variant_bwd(torch.bfloat16, d) == expected
     assert fa.variant_bwd(torch.float32, d) == "fa_bwd_simt"
 
 
@@ -255,3 +259,62 @@ def test_backward_wrapper_raises_on_what_it_does_not_take(bad, message):
         q, k, v, out, do = (_z(*x.shape[:3], 48) for x in (q, k, v, out, do))
     with pytest.raises(ValueError, match=message):
         fa.flash_attention_bwd(q, k, v, out, lse, do)
+
+
+def _offset(shape, dtype, elements=1):
+    """A CPU tensor of `shape` whose data starts `elements` past an
+    allocation's start: off any 16-byte boundary."""
+    flat = torch.zeros(elements + torch.Size(shape).numel(), dtype=dtype)
+    return flat[elements:].view(shape)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("bad", ["base", "rows"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_backward_wrapper_refuses_what_tma_cannot_take(which, bad, d):
+    """bf16 at head dims 64 and 128 reaches the wgmma backward, which loads
+    q, k and v by TMA: a base or a row stride off a 16-byte boundary raises,
+    on CPU tensors, before the device check; aligned inputs reach it."""
+    bf = torch.bfloat16
+    shapes = {"q": (1, 4, 16, d), "k": (1, 2, 16, d), "v": (1, 2, 16, d)}
+    t = {name: torch.zeros(shape, dtype=bf) for name, shape in shapes.items()}
+    out, do = torch.zeros(shapes["q"], dtype=bf), torch.zeros(shapes["q"], dtype=bf)
+    lse = torch.zeros((1, 4, 16))
+    assert fa.variant_bwd(bf, d) == "fa_bwd_wgmma"
+    with pytest.raises(ValueError, match="CUDA tensors"):   # aligned: next check
+        fa.flash_attention_bwd(t["q"], t["k"], t["v"], out, lse, do)
+    if bad == "base":
+        t[which] = _offset(shapes[which], bf)
+    else:   # rows d + 4 elements apart
+        b, h, sq, _ = shapes[which]
+        t[which] = torch.zeros((b, h, sq, d + 4), dtype=bf)[..., :d]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fa.flash_attention_bwd(t["q"], t["k"], t["v"], out, lse, do)
+
+
+@pytest.mark.parametrize("name,dtype,d", [
+    ("fa_bwd_wgmma", torch.bfloat16, 32), ("fa_bwd_wgmma", torch.bfloat16, 80),
+    ("fa_bwd_wgmma", torch.float32, 64), ("fa_bwd_bf16_mma", torch.float32, 64),
+    ("fa_bwd_simt", torch.bfloat16, 128), ("fa_bwd_none", torch.bfloat16, 64)])
+def test_explicit_backward_variant_that_does_not_take_raises(name, dtype, d):
+    """``variant=`` overrides the rule only with kernels that take the dtype
+    and head dim: anything else raises before the device check."""
+    q, k, v = _z(1, 4, 16, d, dtype=dtype), _z(1, 2, 16, d, dtype=dtype), \
+        _z(1, 2, 16, d, dtype=dtype)
+    out, do, lse = _z(1, 4, 16, d, dtype=dtype), _z(1, 4, 16, d, dtype=dtype), \
+        _z(1, 4, 16)
+    with pytest.raises(ValueError, match="has no kernel"):
+        fa.flash_attention_bwd(q, k, v, out, lse, do, variant=name)
+
+
+@pytest.mark.parametrize("name,dtype,d", [
+    ("fa_bwd_wgmma", torch.bfloat16, 64), ("fa_bwd_wgmma", torch.bfloat16, 128),
+    ("fa_bwd_bf16_mma", torch.bfloat16, 64), ("fa_bwd_bf16_mma", torch.bfloat16, 80),
+    ("fa_bwd_simt", torch.float32, 64)])
+def test_explicit_backward_variant_that_takes_reaches_the_device_check(name, dtype, d):
+    q, k, v = _z(1, 4, 16, d, dtype=dtype), _z(1, 2, 16, d, dtype=dtype), \
+        _z(1, 2, 16, d, dtype=dtype)
+    out, do, lse = _z(1, 4, 16, d, dtype=dtype), _z(1, 4, 16, d, dtype=dtype), \
+        _z(1, 4, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_bwd(q, k, v, out, lse, do, variant=name)

@@ -356,7 +356,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files += [REPO / "chip_smoke.py", REPO / "examples" / "serve_batch_torch.py",
               REPO / "examples" / "quickstart_torch.py",
               REPO / "scripts" / "profile_torch_serve.py",
-              REPO / "scripts" / "train_lr_sweep.py"]
+              REPO / "scripts" / "train_lr_sweep.py",
+              REPO / "scripts" / "flash_bwd_ablation.py"]
     assert len(files) > 25
     scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
                for p in files if "repro_torch" in p.parts}

@@ -40,6 +40,20 @@ def test_attention_variant_by_head_dim(d, bf16, f32):
     assert fa.variant(torch.float32, d) == f32
 
 
+@pytest.mark.parametrize("d,bf16,f32", [
+    (32, "fa_bwd_bf16_mma", "fa_bwd_simt"), (64, "fa_bwd_wgmma", "fa_bwd_simt"),
+    (80, "fa_bwd_bf16_mma", "fa_bwd_simt"), (128, "fa_bwd_wgmma", "fa_bwd_simt")])
+def test_attention_backward_variant_by_head_dim(d, bf16, f32):
+    """The backward follows the forward's rule: bf16 at head dims 64 and 128
+    on wgmma + TMA (two CUDA kernels, dQ first), 32 and 80 on mma.sync,
+    float32 on the fp32 pipes."""
+    assert fa.variant_bwd(torch.bfloat16, d) == bf16
+    assert fa.variant_bwd(torch.float32, d) == f32
+    assert fa.VARIANT_KERNELS_BWD[bf16] == (
+        ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma") if d in fa.WGMMA_HEAD_DIMS
+        else ("fa_bwd_delta", "fa_bwd_dkdv_mma", "fa_bwd_dq_mma"))
+
+
 def test_attention_variant_refuses_what_no_kernel_takes():
     for dtype, d in ((torch.float16, 64), (torch.bfloat16, 48), (torch.float32, 256)):
         with pytest.raises(ValueError, match="no kernel"):
