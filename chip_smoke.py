@@ -7,19 +7,21 @@ Needs one NVIDIA Hopper card, `nvcc` and nothing else; no network.  It builds
 the port's kernels (flash attention forward and backward, the Mamba-2 SSD
 scan) from the sources in this checkout, holds each against its plain
 PyTorch version on the card (naming the CUDA kernels that each call launched,
-as the C functions count them), serves tinyllama-1.1b and mamba2-1.3b at full
-width (random weights from a seed: batch 8 x prompt 1024, 64 generated
-tokens) through the port's prefill and decode steps, times the attention
-backward in turns against its earlier variant and PyTorch's fused backends,
-trains tinyllama-1.1b at full width and depth (batch 8 x 1024, a few AdamW
-steps through the port's train step), holds the kernel paths against the
-dense paths (fp32, and bf16 for the gradients), and checks the results.
+as the C functions count them), times the attention forward and backward in
+turns against their earlier variants and PyTorch's fused backends, serves
+tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full width (random weights
+from a seed: batch 8 x prompt 1024, 64 generated tokens) through the port's
+prefill and decode steps, trains tinyllama-1.1b and stablelm-3b at full width
+and depth (batch 8 x 1024, a few AdamW steps through the port's train step),
+holds the kernel paths against the dense paths (fp32, and bf16 for the
+gradients), and checks the results.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device it prints no result and exits with code 1.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -39,8 +41,9 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # (B, Hq, Hkv, Sq, Skv, D) x (causal, window): the sweep of the JAX package's
-# kernel tests, and one case at the head dim 80 that stablelm-3b has at full
-# width; causal cases need Sq == Skv there and are left out otherwise.
+# kernel tests, cases at the head dim 80 that stablelm-3b has at full width,
+# and the wgmma kernel's edges at 80 and 32 (the last 64-column atom only
+# part D); causal cases need Sq == Skv there and are left out otherwise.
 SWEEP_SHAPES = [
     (1, 1, 1, 64, 64, 64),
     (2, 4, 2, 130, 130, 64),      # GQA + ragged
@@ -48,6 +51,10 @@ SWEEP_SHAPES = [
     (2, 4, 2, 300, 300, 128),     # GQA + ragged at head dim 128, every mask
     (1, 8, 1, 64, 64, 32),        # MQA
     (2, 4, 4, 150, 150, 80),      # stablelm-3b's head dim, ragged
+    (1, 2, 2, 40, 40, 80),        # Sq below one tile
+    (1, 4, 2, 257, 130, 80),      # neither length a multiple of 128
+    (1, 16, 1, 300, 300, 32),     # MQA, a group of 16
+    (1, 4, 2, 257, 257, 32),
 ]
 SWEEP_MASKS = [(True, None), (False, None), (True, 48)]
 # relative to max|plain|, for attention's output and for the SSD scan's y and
@@ -64,24 +71,33 @@ BWD_SHAPES = [
     (2, 4, 4, 150, 150, 80),      # stablelm-3b's head dim, ragged
     (2, 4, 2, 200, 200, 128),     # GQA + ragged at head dim 128
     (1, 8, 2, 96, 40, 32),        # Skv < Sq
-    # the edges of the wgmma variant (128-row items, 64-row tiles), at both
-    # of its head dims
+    # the edges of the wgmma variant (128-row items, 64-row tiles), at every
+    # head dim (at 32 and 80 the last 64-column atom only part D)
     (1, 2, 2, 40, 40, 64),        # Sq below one tile
     (1, 2, 1, 40, 40, 128),
+    (1, 2, 2, 40, 40, 80),
+    (1, 2, 1, 40, 40, 32),
     (1, 4, 2, 257, 257, 64),      # neither length a multiple of 128
     (1, 4, 2, 257, 130, 128),     # and Skv < Sq
+    (1, 4, 2, 257, 257, 80),
+    (1, 4, 2, 257, 130, 32),
     (1, 16, 1, 300, 300, 64),     # MQA, a group of 16
     (1, 16, 1, 300, 300, 128),
+    (1, 16, 1, 300, 300, 80),
+    (1, 16, 1, 300, 300, 32),
 ]
 BWD_MASKS = [(True, None), (False, None), (True, 48), (False, 16)]
 # dq, dk, dv relative to max|plain|: fp32 sums in another order than the
 # plain version's over up to 200 keys and 4 query heads a KV head; bf16
 # rounds P and dS to bf16 for the second products
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# the training shape: tinyllama-1.1b's attention at batch 8 x sequence 1024;
-# and llama3.2-3b's at head dim 128, the wgmma backward's other head dim
+# the training shapes: tinyllama-1.1b's attention at batch 8 x sequence 1024,
+# and stablelm-3b's (head dim 80, MHA); llama3.2-3b's at head dim 128; and
+# head dim 32, which no config has at full width, at stablelm-3b's heads
 TRAIN_ATTN_SHAPE = (8, 32, 4, 1024, 1024, 64)
+STABLELM_ATTN_SHAPE = (8, 32, 32, 1024, 1024, 80)
 BWD_D128_SHAPE = (8, 24, 8, 1024, 1024, 128)
+D32_SHAPE = (8, 32, 32, 1024, 1024, 32)
 # PyTorch's fused attention backends whose backward is timed as the library
 # call (the fastest one is library_ms)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
@@ -104,11 +120,11 @@ SSD_SHAPES = [
 SSD_INIT_STATE = {1, 5}            # cases also run from a random initial state
 
 # K1 at llama3.2-3b's full width (head dim 128, 24 / 8 heads), timed beside the
-# main path's shape: the other head dim of the wgmma kernel
+# main paths' shapes
 K1_D128_SHAPE = (8, 24, 8, 1024, 1024, 128)
 
 # The main paths: each arch served at batch 8 x prompt 1024, 64 generated tokens.
-SERVE_ARCHS = ("tinyllama-1.1b", "mamba2-1.3b")
+SERVE_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
 BATCH, PROMPT_LEN, GEN = 8, 1024, 64
 SEED = 0
 # decode(token S) after prefill(S) against prefill(S + 1), in bf16 through 22
@@ -121,15 +137,15 @@ PARITY_TOL = 2e-4     # fp32, kernel path against dense path, 2 layers
 # (80), partial rotary and layer norm tinyllama does not have
 PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
 
-# The training path: tinyllama-1.1b at full width and depth, bf16, remat
-# "full" (the config's), batch 8 x sequence 1024, one warm-up step and then
-# TRAIN_STEPS timed AdamW steps, all on the first batch of the synthetic
+# The training paths: tinyllama-1.1b and stablelm-3b at full width and depth,
+# bf16, remat "full" (the configs'), batch 8 x sequence 1024, one warm-up step
+# and then TRAIN_STEPS timed AdamW steps, all on the first batch of the synthetic
 # pipeline, so the loss must fall from timed step to timed step, and end
 # below the warm-up step's.  A first Adam step from random weights moves
 # every weight by about lr in its gradient's sign, and raises the loss on
 # both attention paths and with fp32 weights too; larger lrs without warm-up
 # swing wider (scripts/train_lr_sweep.py), so these steps take a small one
-TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_ARCHS = ("tinyllama-1.1b", "stablelm-3b")
 TRAIN_STEPS = 3
 TRAIN_OPT = dict(lr=1e-5, warmup_steps=0)
 # Adam's update lr·m̂/(√v̂ + eps) is ill-conditioned where the gradient (after
@@ -141,6 +157,26 @@ NEAR_ZERO_GRAD = 1e-6
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def release() -> None:
+    """Give the memory of the phase before back to the card, so that each
+    phase's peak is its own and the large ones fit one after another."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def cuda_kernel_counts() -> dict:
+    """Launches of every CUDA kernel of the port since its libraries were
+    loaded, as the C functions count them."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as kssd
+    return {**fa.launch_counts(), **kssd.launch_counts()}
+
+
+def cuda_kernels_since(before: dict) -> dict:
+    return {k: n - before[k] for k, n in cuda_kernel_counts().items() if n != before[k]}
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -225,6 +261,16 @@ def launched_variant(fn, module, expected: str, variants=None):
     return out, ran[0], sum(seen.values())
 
 
+def in_turns(turns, iters: int):
+    """Each (name, fn) of `turns` timed in turns, then again in reverse order
+    (a, b, c, c, b, a): each name's readings, and the readings in order."""
+    ms, order = {name: [] for name, _ in turns}, []
+    for name, fn in turns + turns[::-1]:
+        ms[name].append(time_ms(fn, iters))
+        order.append([name, ms[name][-1]])
+    return ms, order
+
+
 def library_attention(q, k, v, causal):
     """One PyTorch call for the same function: the yardstick, used nowhere in
     the port."""
@@ -285,6 +331,8 @@ def phase_kernels() -> dict:
                 out, ran, _ = launched_variant(
                     lambda: flash_attention(q, k, v, causal=causal, window=window),
                     fa, fa.variant(dtype, D))
+                if (ran == "fa_fwd_wgmma") != (dtype == torch.bfloat16):
+                    raise AssertionError(f"{dtype} at head dim {D} ran {ran}")
                 ref = attention_ref(q, k, v, causal=causal, window=window)
                 err = rel_err(out, ref)
                 cases.append({"shape": [B, Hq, Hkv, Sq, Skv, D],
@@ -312,9 +360,11 @@ def phase_kernels() -> dict:
         if rel_err(out, ref) >= TOL[dtype] or float(out[:, :, 60:].abs().max()) != 0.0:
             raise AssertionError("rows that see no key must give exact 0")
 
-    def measure(shape):
-        """bf16 causal at a full-width shape: error, and the kernel's time
-        beside the plain version's, the library call's and the bound."""
+    def measure(shape, must_beat_earlier=False):
+        """bf16 causal at a full-width shape: error, and the kernel's time in
+        turns with its earlier variant (mma.sync, by `variant=`) and the
+        library call, each the better of two readings, beside the plain
+        version's time and the bound."""
         B, Hq, Hkv, Sq, Skv, D = shape
         q = make((B, Hq, Sq, D), torch.bfloat16)
         k = make((B, Hkv, Skv, D), torch.bfloat16)
@@ -325,32 +375,47 @@ def phase_kernels() -> dict:
         ref = attention_ref(q, k, v, causal=True)
         err = rel_err(out, ref)
         abs_err = float((out.float() - ref.float()).abs().max())
-        if not err < TOL[torch.bfloat16]:
-            raise AssertionError(f"shape {shape} disagrees: rel_err {err}")
+        if not err < TOL[torch.bfloat16] or ran != "fa_fwd_wgmma":
+            raise AssertionError(f"shape {shape} disagrees: rel_err {err}, {ran}")
+        earlier = "fa_fwd_bf16_mma"
+        kernel = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        mma = lambda: fa.flash_attention_fwd(  # noqa: E731
+            q, k, v, causal=True, variant=earlier)
+        earlier_err = rel_err(mma(), ref)
         library = library_attention(q, k, v, True)
         lib_err = rel_err(library(), ref)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True), 5, 1)
-        kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 50)
-        library_ms = time_ms(library, 50)
-        kernel_ms = min(kernel_ms,
-                        time_ms(lambda: flash_attention(q, k, v, causal=True), 50))
+        ms, order = in_turns([("kernel", kernel), ("earlier", mma),
+                              ("library", library)], 50)
+        kernel_ms = min(ms["kernel"])
+        if must_beat_earlier and not kernel_ms < min(ms["earlier"]):
+            raise AssertionError(f"{ran} is not faster than {earlier}: {order}")
         bound_ms, bound_by = attention_bound_ms(q, k, v, True, None)
         return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
                 "variant": ran, "cuda_kernels_per_call": n_kernels,
                 "max_rel_err": err, "max_abs_err": abs_err,
                 "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
-                "plain_ms": plain_ms, "library_ms": library_ms,
+                "earlier_variant": earlier, "earlier_ms": min(ms["earlier"]),
+                "earlier_rel_err": earlier_err,
+                "speedup_over_earlier": min(ms["earlier"]) / kernel_ms,
+                "ms_in_turns": order,
+                "plain_ms": plain_ms, "library_ms": min(ms["library"]),
                 "library_rel_err": lib_err, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
-    # the main path's shape (tinyllama-1.1b), then llama3.2-3b's head dim 128
+    # the main path's shape (tinyllama-1.1b), stablelm-3b's (head dim 80),
+    # llama3.2-3b's head dim 128, and head dim 32, which no config has at
+    # full width, at stablelm-3b's heads
     main = measure((BATCH, 32, 4, PROMPT_LEN, PROMPT_LEN, 64))
+    d80 = measure(STABLELM_ATTN_SHAPE, must_beat_earlier=True)
     d128 = measure(K1_D128_SHAPE)
+    d32 = measure(D32_SHAPE)
     emit("kernels", name="flash_attention_fwd", sweep=cases,
          max_rel_err_fp32=max(c["rel_err"] for c in cases if c["dtype"] == "float32"),
          max_rel_err_bf16=max(c["rel_err"] for c in cases if c["dtype"] == "bfloat16"),
-         main_path_shape=main, head_dim_128=d128)
-    return main
+         main_path_shape=main, head_dim_80=d80, head_dim_128=d128,
+         head_dim_32_no_config_at_full_width=d32)
+    return main, d80
 
 
 def attention_bwd_bound_ms(q, k, v, causal, window):
@@ -491,17 +556,16 @@ def phase_attention_bwd() -> dict:
                         "equal_run_to_run": all(torch.equal(a, b)
                                                 for a, b in zip(grads, again))}
                 cases.append(case)
-                wgmma = dtype == torch.bfloat16 and D in fa.WGMMA_HEAD_DIMS
                 if not (max(errs) < BWD_TOL[dtype] and case["lse_rel_err"] < TOL[dtype]
                         and all(bool(torch.isfinite(g).all()) for g in grads)
                         and float(grads[0][blind].abs().sum()) == 0.0
                         and case["equal_run_to_run"]
-                        and (ran == "fa_bwd_wgmma") == wgmma):
+                        and (ran == "fa_bwd_wgmma") == (dtype == torch.bfloat16)):
                     raise AssertionError(f"flash_attention_bwd disagrees: {case}")
 
-    def measure(shape) -> dict:
+    def measure(shape, must_beat_earlier=False) -> dict:
         """bf16 causal at a full-width training shape: error, the kernel
-        (variant_bwd's) timed in turns with the PR-14 kernel and with the
+        (variant_bwd's) timed in turns with the mma.sync variant and with the
         fastest SDPA backend, each backend alone, the split between the CUDA
         kernels, and the bounds."""
         B, Hq, Hkv, Sq, Skv, D = shape
@@ -523,7 +587,7 @@ def phase_attention_bwd() -> dict:
             raise AssertionError(f"training shape {shape} disagrees: {errs}, "
                                  f"lse {main_lse_err}, equal {equal}, {ran} "
                                  f"with {n_kernels} CUDA kernels")
-        earlier = "fa_bwd_bf16_mma"   # the PR-14 kernel, at every bf16 head dim
+        earlier = "fa_bwd_bf16_mma"   # the mma.sync design, at every bf16 head dim
         kernel = lambda: fa.flash_attention_bwd(  # noqa: E731
             q, k, v, out, lse, do, causal=True)
         mma = lambda: fa.flash_attention_bwd(  # noqa: E731
@@ -547,19 +611,15 @@ def phase_attention_bwd() -> dict:
         turns = [("kernel", kernel), ("earlier", mma)]
         if best is not None:
             turns.append(("library", calls[best]))
-        order = turns + turns[::-1]
-        ms, in_turns = {name: [] for name, _ in turns}, []
-        for name, fn in order:
-            ms[name].append(time_ms(fn, 20))
-            in_turns.append([name, ms[name][-1]])
+        ms, order = in_turns(turns, 20)
         plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do,
                                                      causal=True), 3, 1)
         bound_ms, bound_by = attention_bwd_bound_ms(q, k, v, True, None)
         seven_ms = attention_bwd_seven_products_ms(q, k, True, None)
         split = device_split(kernel)
         kernel_ms = min(ms["kernel"])
-        if shape == TRAIN_ATTN_SHAPE and not kernel_ms < min(ms["earlier"]):
-            raise AssertionError(f"{ran} is not faster than {earlier}: {in_turns}")
+        if must_beat_earlier and not kernel_ms < min(ms["earlier"]):
+            raise AssertionError(f"{ran} is not faster than {earlier}: {order}")
         return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
                 "variant": ran, "cuda_kernels_per_call": n_kernels,
                 "dq_rel_err": errs[0], "dk_rel_err": errs[1], "dv_rel_err": errs[2],
@@ -570,7 +630,7 @@ def phase_attention_bwd() -> dict:
                 "earlier_variant": earlier, "earlier_ms": min(ms["earlier"]),
                 "earlier_rel_err": mma_err,
                 "speedup_over_earlier": min(ms["earlier"]) / kernel_ms,
-                "ms_in_turns": in_turns,
+                "ms_in_turns": order,
                 "plain_ms": plain_ms,
                 "library_ms": min(ms["library"]) if best else None,
                 "library_backend": best, "library_backends": backends,
@@ -579,8 +639,10 @@ def phase_attention_bwd() -> dict:
                 "bound_ms_seven_products": seven_ms,
                 "goal_ms": 0.50 if shape == TRAIN_ATTN_SHAPE else None}
 
-    main = measure(TRAIN_ATTN_SHAPE)
+    main = measure(TRAIN_ATTN_SHAPE, must_beat_earlier=True)
+    d80 = measure(STABLELM_ATTN_SHAPE, must_beat_earlier=True)
     d128 = measure(BWD_D128_SHAPE)
+    d32 = measure(D32_SHAPE)
     # the forward at the training shape, without and with the log-sum-exp,
     # in turns
     B, Hq, Hkv, Sq, Skv, D = TRAIN_ATTN_SHAPE
@@ -603,8 +665,9 @@ def phase_attention_bwd() -> dict:
                                   if c["dtype"] == "bfloat16"),
          variants={v: sum(c["variant"] == v for c in cases)
                    for v in fa.VARIANT_CODES_BWD},
-         main_path_shape=main, head_dim_128=d128)
-    return main
+         main_path_shape=main, head_dim_80=d80, head_dim_128=d128,
+         head_dim_32_no_config_at_full_width=d32)
+    return main, d80
 
 
 def phase_ssd_kernels() -> dict:
@@ -683,7 +746,9 @@ def phase_ssd_kernels() -> dict:
 
 def phase_serve(arch: str) -> dict:
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan import kernel as kssd
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.launch.serve import generate, pad_cache_to
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -699,19 +764,30 @@ def phase_serve(arch: str) -> dict:
     generate(cfg, params, prompts, 4)          # warm-up: library handles, caches
 
     # the main path, with every kernel's count set to 0 just before it: the
-    # arch's own kernel runs once per layer in the prefill, the other never
+    # arch's own kernel runs once per layer in the prefill, the other never;
+    # the CUDA kernels of the variant that the rule names, once each a call
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = flash_attention.bwd_launches = ssd.launches = 0
+    before = cuda_kernel_counts()
     tokens, t_prefill, t_decode = generate(cfg, params, prompts, GEN)
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches,
               "ssd_scan_fwd": ssd.launches}
+    cuda_kernels = cuda_kernels_since(before)
     peak = torch.cuda.max_memory_allocated()
-    own = "ssd_scan_fwd" if cfg.family == "ssm" else "flash_attention_fwd"
+    if cfg.family == "ssm":
+        own = "ssd_scan_fwd"
+        own_kernels = kssd.VARIANT_KERNELS[kssd.variant(
+            cfg.compute_dtype, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)]
+    else:
+        own = "flash_attention_fwd"
+        own_kernels = fa.VARIANT_KERNELS[fa.variant(cfg.compute_dtype,
+                                                    cfg.resolved_head_dim)]
     launches = counts[own]
-    if launches != cfg.num_layers or sum(counts.values()) != launches:
-        raise AssertionError(f"kernel launches {counts} in one prefill of "
-                             f"{cfg.num_layers} layers of {arch}")
+    if launches != cfg.num_layers or sum(counts.values()) != launches or \
+            cuda_kernels != {k: cfg.num_layers for k in own_kernels}:
+        raise AssertionError(f"kernel launches {counts} ({cuda_kernels}) in one "
+                             f"prefill of {cfg.num_layers} layers of {arch}")
     if tokens.shape != (BATCH, GEN) or int(tokens.min()) < 0 \
             or int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError("generated tokens out of range")
@@ -720,7 +796,7 @@ def phase_serve(arch: str) -> dict:
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     full, _ = prefill(params, {"tokens": prompts})
     part, cache = prefill(params, {"tokens": prompts[:, :-1]})
-    cache = pad_cache_to(cache, PROMPT_LEN + 4)
+    cache = pad_cache_to(cache, PROMPT_LEN + 4, cfg.window)
     step, cache = decode(params, cache, {"tokens": prompts[:, -1:]})
     if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
         raise AssertionError("logits are not finite")
@@ -738,6 +814,7 @@ def phase_serve(arch: str) -> dict:
               "decode_tokens_per_s": BATCH * steps / t_decode,
               "peak_memory_bytes": peak, "kernel": own,
               "kernel_launches": launches, "launches_by_kernel": counts,
+              "cuda_kernel_launches": cuda_kernels,
               "decode_vs_prefill_rel_err": decode_err, "decode_tol": DECODE_TOL}
     emit("serve", **result)
     return result
@@ -781,11 +858,12 @@ def _train_batch(cfg) -> dict:
     return {k: torch.from_numpy(v).long().cuda() for k, v in batch.items()}
 
 
-def phase_train() -> dict:
-    """tinyllama-1.1b trains: a warm-up step, then TRAIN_STEPS timed steps of
-    the port's train step, with every kernel's count set to 0 just before
-    them: K1 twice a layer a step (the forward, and again under the full
-    remat's recompute), K1b once, K2 never."""
+def phase_train(arch: str) -> dict:
+    """`arch` trains at full width and depth: a warm-up step, then
+    TRAIN_STEPS timed steps of the port's train step, with every kernel's
+    count set to 0 just before them: K1 twice a layer a step (the forward,
+    and again under the full remat's recompute), K1b once, K2 never; each
+    through the CUDA kernels of the variant that the rule names."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -794,9 +872,9 @@ def phase_train() -> dict:
     from repro_torch.models.common import get_model, param_count, tree_leaves
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     if cfg.remat != "full" or cfg.param_dtype != torch.bfloat16:
-        raise AssertionError(f"{TRAIN_ARCH}: remat {cfg.remat}, {cfg.param_dtype}")
+        raise AssertionError(f"{arch}: remat {cfg.remat}, {cfg.param_dtype}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = get_model(cfg).init(cfg, gen, "cuda")
     opt = adamw_init(params)
@@ -811,7 +889,7 @@ def phase_train() -> dict:
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = flash_attention.bwd_launches = ssd.launches = 0
     fa.flash_attention_bwd.copies = 0
-    before = fa.launch_counts()
+    before = cuda_kernel_counts()
     times = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -821,21 +899,23 @@ def phase_train() -> dict:
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches,
               "ssd_scan_fwd": ssd.launches}
-    cuda_kernels = {k: n - before[k] for k, n in fa.launch_counts().items()
-                    if n != before[k]}
+    cuda_kernels = cuda_kernels_since(before)
     bwd_copies = fa.flash_attention_bwd.copies
     peak = torch.cuda.max_memory_allocated()
     expected = {"flash_attention_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
                 "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS,
                 "ssd_scan_fwd": 0}
-    # K1b through the wgmma variant's two CUDA kernels, once each a call
-    bwd_kernels = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(cfg.compute_dtype,
-                                                        cfg.resolved_head_dim)]
-    if counts != expected or any(cuda_kernels.get(k) != expected["flash_attention_bwd"]
-                                 for k in bwd_kernels):
+    # K1 and K1b through the CUDA kernels of the rule's variants (the
+    # backward's wgmma variant: two, once each a call)
+    hd = cfg.resolved_head_dim
+    want = {k: expected["flash_attention_fwd"]
+            for k in fa.VARIANT_KERNELS[fa.variant(cfg.compute_dtype, hd)]}
+    want.update({k: expected["flash_attention_bwd"] for k in
+                 fa.VARIANT_KERNELS_BWD[fa.variant_bwd(cfg.compute_dtype, hd)]})
+    if counts != expected or cuda_kernels != want:
         raise AssertionError(f"kernel launches {counts} ({cuda_kernels}) in "
                              f"{TRAIN_STEPS} train steps of {cfg.num_layers} "
-                             f"layers, expected {expected} and {bwd_kernels}")
+                             f"layers, expected {expected} and {want}")
     timed = losses[1:]
     if not all(math.isfinite(x) for x in losses) or timed[-1] >= losses[0] or \
             any(b >= a for a, b in zip(timed, timed[1:])):
@@ -843,7 +923,7 @@ def phase_train() -> dict:
                              f"and falling: {losses}")
     n_params = param_count(params)
     ms = sum(times) / len(times) * 1e3
-    result = {"arch": TRAIN_ARCH, "params": n_params, "dtype": "bfloat16",
+    result = {"arch": arch, "params": n_params, "dtype": "bfloat16",
               "remat": cfg.remat, "batch": BATCH, "seq": PROMPT_LEN,
               "steps_timed": TRAIN_STEPS, "warmup_step_s": warmup_s,
               "ms_per_step": ms, "ms_per_step_each": [t * 1e3 for t in times],
@@ -858,20 +938,20 @@ def phase_train() -> dict:
     return result
 
 
-def phase_train_parity_bf16() -> None:
-    """The gradients of tinyllama-1.1b at full width, 2 layers, in bf16 (the
-    config's types), kernel path against dense path: the path the fp32 run
-    cannot reach, K1b's wgmma variant.  Each gradient leaf within
-    BF16_GRAD_TOL, relative to its dense max."""
+def phase_train_parity_bf16(arch: str) -> None:
+    """The gradients of `arch` at full width, 2 layers, in bf16 (the config's
+    types), kernel path against dense path: the path the fp32 run cannot
+    reach, K1b's wgmma variant.  Each gradient leaf within BF16_GRAD_TOL,
+    relative to its dense max."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.common import get_model
     from repro_torch.testing import rel_err
 
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=2)
+    cfg = get_config(arch).replace(num_layers=2)
     if cfg.compute_dtype != torch.bfloat16:
-        raise AssertionError(f"{TRAIN_ARCH} computes in {cfg.compute_dtype}")
+        raise AssertionError(f"{arch} computes in {cfg.compute_dtype}")
     dense = cfg.replace(attn_impl="dense")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = get_model(cfg).init(cfg, gen, "cuda")
@@ -883,7 +963,7 @@ def phase_train_parity_bf16() -> None:
     loss_d, grads_d = loss_and_grads(dense, params, batch)
     grad_errs = [rel_err(a, b) for a, b in zip(grads_k, grads_d)]
     loss_err = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
-    result = {"arch": TRAIN_ARCH, "layers": 2, "dtype": "bfloat16",
+    result = {"arch": arch, "layers": 2, "dtype": "bfloat16",
               "loss_rel_err": loss_err, "max_grad_rel_err": max(grad_errs),
               "median_grad_rel_err": sorted(grad_errs)[len(grad_errs) // 2],
               "leaves": len(grad_errs), "cuda_kernels": ran,
@@ -897,9 +977,9 @@ def phase_train_parity_bf16() -> None:
                              f"disagree: {result}")
 
 
-def phase_train_parity_on_card() -> None:
-    """One train step of tinyllama-1.1b at full width, 2 layers, fp32, with
-    the kernels against the dense path: loss, every gradient and the updated
+def phase_train_parity_on_card(arch: str) -> None:
+    """One train step of `arch` at full width, 2 layers, fp32, with the
+    kernels against the dense path: loss, every gradient and the updated
     params (the ill-conditioned elements counted, the rest) at PARITY_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import loss_and_grads, make_train_step
@@ -907,8 +987,8 @@ def phase_train_parity_on_card() -> None:
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.testing import rel_err
 
-    cfg = get_config(TRAIN_ARCH).replace(num_layers=2, param_dtype=torch.float32,
-                                         compute_dtype=torch.float32)
+    cfg = get_config(arch).replace(num_layers=2, param_dtype=torch.float32,
+                                   compute_dtype=torch.float32)
     dense = cfg.replace(attn_impl="dense")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = get_model(cfg).init(cfg, gen, "cuda")
@@ -940,7 +1020,7 @@ def phase_train_parity_on_card() -> None:
     loss_err = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
     step_loss_err = abs(stepped["kernel"][1] - stepped["dense"][1]) / abs(stepped["dense"][1])
     n_params = sum(x.numel() for x in tree_leaves(params))
-    result = {"arch": TRAIN_ARCH, "layers": 2, "dtype": "float32",
+    result = {"arch": arch, "layers": 2, "dtype": "float32",
               "loss_rel_err": loss_err, "step_loss_rel_err": step_loss_err,
               "max_grad_rel_err": max(grad_errs), "params_rel_err": param_err,
               "grad_norm": norm, "ill_conditioned_elements_off": n_ill,
@@ -963,15 +1043,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
     smi_line = phase_env()
     phase_build(verbose="--verbose-build" in sys.argv[1:])
-    k1 = phase_kernels()
+    k1, k1_d80 = phase_kernels()
     k2 = phase_ssd_kernels()
-    serves = {arch: phase_serve(arch) for arch in SERVE_ARCHS}
+    serves = {}
+    for arch in SERVE_ARCHS:
+        release()
+        serves[arch] = phase_serve(arch)
     for arch in PARITY_ARCHS:
+        release()
         phase_parity_on_card(arch)
-    k1b = phase_attention_bwd()
-    trained = phase_train()
-    phase_train_parity_on_card()
-    phase_train_parity_bf16()
+    k1b, k1b_d80 = phase_attention_bwd()
+    trained = {}
+    for arch in TRAIN_ARCHS:
+        release()
+        trained[arch] = phase_train(arch)
+        release()
+        phase_train_parity_on_card(arch)
+        release()
+        phase_train_parity_bf16(arch)
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
@@ -980,7 +1069,12 @@ def main() -> int:
     # counts calls of the op on the main path; `variant` and
     # `cuda_kernels_per_call` are what the C function counted one call launch
     # at the main path's shape (the SSD scan's wgmma variant: the state pass,
-    # then the outputs; the backward's: dQ with delta, then dK/dV)
+    # then the outputs; the backward's: dQ with delta, then dK/dV); K1 and
+    # K1b also at stablelm-3b's head dim 80, with the launches of its paths
+    main_train = trained[TRAIN_ARCHS[0]]["launches_by_kernel"]
+    at_d80 = {"flash_attention_fwd": (k1_d80, serves["stablelm-3b"]["kernel_launches"]),
+              "flash_attention_bwd": (k1b_d80, trained["stablelm-3b"]
+                                      ["launches_by_kernel"]["flash_attention_bwd"])}
     rows = []
     for name, module, replaces, numbers, arch in (
             ("flash_attention_fwd", fa,
@@ -998,7 +1092,7 @@ def main() -> int:
             "replaces": replaces,
             # the serving kernels' launches in one prefill; the backward's in
             # the timed train steps
-            "launches": (trained["launches_by_kernel"][name] if arch is None
+            "launches": (main_train[name] if arch is None
                          else serves[arch]["kernel_launches"]),
             "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["kernel_ms"],
@@ -1009,6 +1103,13 @@ def main() -> int:
             "variant": numbers["variant"],
             "cuda_kernels_per_call": numbers["cuda_kernels_per_call"],
         })
+        if name in at_d80:
+            d80, launches = at_d80[name]
+            rows[-1]["head_dim_80"] = {
+                "shape": d80["shape"], "variant": d80["variant"],
+                "ms": d80["kernel_ms"], "earlier_ms": d80["earlier_ms"],
+                "library_ms": d80["library_ms"], "bound_ms": d80["bound_ms"],
+                "launches": launches}
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -2,19 +2,25 @@
 """What holds K1b's wgmma backward: the kernel timed against copies of its
 source with one design choice undone or one part of the work cut out.
 
-    PYTHONPATH=src python3 scripts/flash_bwd_ablation.py
+    PYTHONPATH=src python3 scripts/flash_bwd_ablation.py [--head-dim 80 ...]
 
 Needs one CUDA card and nvcc.  Each variant is flash_bwd.cu with a text
 edit, built into build/ablation/ (one nvcc each, started together) and
-loaded in place of the library.  At tinyllama-1.1b's training shape
-(q [8,32,1024,64], k, v [8,4,1024,64]) and llama3.2-3b's (head dim 128),
-bf16, causal, every variant is timed by CUDA events, in turns (all variants,
-then all again in reverse order), and split between the two CUDA kernels by
-torch.profiler.  The cuts compute wrong gradients and are timings only:
+loaded in place of the library.  At the training shapes of the head dims
+asked for (default 64 and 128; 64: tinyllama-1.1b's q [8,32,1024,64], k, v
+[8,4,1024,64]; 80: stablelm-3b's q, k, v [8,32,1024,80]; 128: llama3.2-3b's
+q [8,24,1024,128], k, v [8,8,1024,128]; 32: q, k, v [8,32,1024,32], which no
+config has at full width), bf16, causal, every variant is timed by CUDA
+events, in turns (all variants, then all again in reverse order), and split
+between the two CUDA kernels by torch.profiler.  The cuts compute wrong
+gradients and are timings only:
   as_is               the source as it is
   mask_every_element  the mask tested on every element of every tile
   unchained           each tile's second products waited for at once
-  chained             kept in flight at head dim 128 too
+  chained             kept in flight at every head dim (128 too)
+  padded_tail         at head dims 32 and 80, the second products over the
+                      whole last 64-column atom, zeros included (N 64 or
+                      128), instead of its D - 64 (atoms - 1) real columns
   no_second_products  dQ, dK and dV products dropped, and with them the
                       elementwise pass whose results only they read (cut)
   no_ex2              P without ex2 (cut)
@@ -29,6 +35,7 @@ result; the card's name and power limit first.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -43,20 +50,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-SHAPES = [(8, 32, 4, 1024, 1024, 64), (8, 24, 8, 1024, 1024, 128)]
+SHAPES = {64: (8, 32, 4, 1024, 1024, 64), 80: (8, 32, 32, 1024, 1024, 80),
+          128: (8, 24, 8, 1024, 1024, 128), 32: (8, 32, 32, 1024, 1024, 32)}
 EDITS = {
     "as_is": [],
     "mask_every_element": [
         ("if (tile_is_full(p, qw_start, 64, k_start, kWTile)) {", "if (false) {"),
         ("if (tile_is_full(p, q_start, kWTile, kw_start, 64)) {", "if (false) {")],
-    "unchained": [("constexpr bool chain_products() {\n  return D == 64;",
+    "unchained": [("constexpr bool chain_products() {\n  return D <= 80;",
                    "constexpr bool chain_products() {\n  return false;")],
-    "chained": [("constexpr bool chain_products() {\n  return D == 64;",
+    "chained": [("constexpr bool chain_products() {\n  return D <= 80;",
                  "constexpr bool chain_products() {\n  return true;")],
+    "padded_tail": [("constexpr int acc_cols() {\n  return D;",
+                     "constexpr int acc_cols() {\n  return padded<D>();")],
     "no_second_products": [
-        ("for (int kk = 0; kk < KN; ++kk) wgmma_rs_d<D>(dq, da[kk], mnmajor<kWTile>(Kt, kk));", ""),
-        ("for (int kk = 0; kk < KN; ++kk) wgmma_rs_d<D>(dv, pa[kk], mnmajor<kWTile>(dOt, kk));", ""),
-        ("for (int kk = 0; kk < KN; ++kk) wgmma_rs_d<D>(dk, sa[kk], mnmajor<kWTile>(Qt, kk));", "")],
+        ("for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dq, da[kk], mnmajor<kWTile>(Kt, kk));", ""),
+        ("for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dv, pa[kk], mnmajor<kWTile>(dOt, kk));", ""),
+        ("for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dk, sa[kk], mnmajor<kWTile>(Qt, kk));", "")],
     "no_ex2": [
         ("float pv = fast_exp2(fmaf(sc[i], p.scale_log2, -lse2[r]));",
          "float pv = sc[i] - lse2[r];"),
@@ -159,6 +169,10 @@ def sass_counts(lib_path: Path) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--head-dim", type=int, action="append", choices=sorted(SHAPES),
+                    help="a head dim to time at (repeatable; default 64 and 128)")
+    head_dims = ap.parse_args().head_dim or [64, 128]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -173,7 +187,7 @@ def main() -> None:
     def make(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    for B, Hq, Hkv, Sq, Skv, D in SHAPES:
+    for B, Hq, Hkv, Sq, Skv, D in (SHAPES[d] for d in head_dims):
         q, k, v = make((B, Hq, Sq, D)), make((B, Hkv, Skv, D)), make((B, Hkv, Skv, D))
         out, lse = attention_ref(q, k, v, causal=True, return_lse=True)
         do = make((B, Hq, Sq, D))

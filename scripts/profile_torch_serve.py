@@ -134,7 +134,8 @@ def main() -> None:
 
     def run_prefill():
         logits, cache = prefill(params, {"tokens": prompts})
-        state["cache"] = pad_cache_to(cache, PROMPT_LEN + 2 * DECODE_STEPS + 2)
+        state["cache"] = pad_cache_to(cache, PROMPT_LEN + 2 * DECODE_STEPS + 2,
+                                      cfg.window)
         state["tok"] = sample(logits, 0.0, None)
 
     def run_decode():

@@ -325,6 +325,78 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TB));
 }
 
+// D[64 x 16] += A[64 x 16] * B[16 x 16], A from registers, B from shared
+// memory: the first 16 columns of a 64-column atom.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// D[64 x 32] += A[64 x 16] * B[16 x 32], A from registers, B from shared
+// memory: the first 32 columns of a 64-column atom.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TB));
+}
+
+// Head dims on the 128-byte swizzle.  A row of D columns is atoms<D>()
+// 64-column atoms; the last holds D - 64 (atoms - 1) real columns (16 at D
+// 80, 32 at D 32), and TMA fills the rest with zeros (columns past the
+// tensor map's D are out of bounds), so a tile takes padded<D>() columns of
+// shared memory and its barrier expects the whole box.  A product that
+// reduces over D (K-major) issues D / 16 k-steps and never reads the zeros.
+template <int D>
+__host__ __device__ constexpr int atoms() {
+  return (D + 63) / 64;
+}
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return 64 * atoms<D>();
+}
+
+// acc[64 x C] += A[64 x 16] B, B the MN-major k-step at `db` of a tile whose
+// 64-column atoms lie ATOM_BYTES apart: one wgmma of N C over whole atoms
+// (the LBO of db steps between them), or, for a partial last atom, N 64 on
+// the first and N C - 64 on the second; the accumulator's columns follow
+// the atoms', so the register layout note above holds column by column.
+template <int C, int ATOM_BYTES>
+__device__ __forceinline__ void wgmma_rs_cols(float (&acc)[C / 2],
+                                              const uint32_t (&a)[4], uint64_t db) {
+  static_assert(C == 32 || C == 64 || C == 80 || C == 128, "no wgmma for C");
+  if constexpr (C == 32) {
+    wgmma_rs_n32<1>(acc, a, db, 1);
+  } else if constexpr (C == 64) {
+    wgmma_rs_n64<1>(acc, a, db, 1);
+  } else if constexpr (C == 80) {
+    wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(acc), a, db, 1);
+    // the descriptor's address field counts 16-byte units
+    wgmma_rs_n16<1>(*reinterpret_cast<float(*)[8]>(acc + 32), a,
+                    db + (ATOM_BYTES >> 4), 1);
+  } else {
+    wgmma_rs_n128<1>(acc, a, db, 1);
+  }
+}
+
 // The first k-step of D[64 x 64] = A . B, A and B from shared memory: D is
 // only written (scale-d 0), so its registers need hold nothing before.
 template <int TA, int TB>
@@ -432,7 +504,8 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int rank,
 // dimension 0 the head dim, 1 and 2 the sequence and the head in the order of
 // their strides (a [B, S, H, D] projection viewed as [B, H, S, D] has the
 // head's stride the smaller; *s_first says which), 3 the batch; a box is 64
-// columns of `rows` rows of one head.
+// columns of `rows` rows of one head (at D 32 and 80 the columns past D of
+// the last atom's box load as zeros).
 inline bool map_bhsd(CUtensorMap* map, const void* ptr, int batch, int heads,
                      int seq, int d, long long sb, long long sh, long long ss,
                      int rows, int* s_first) {

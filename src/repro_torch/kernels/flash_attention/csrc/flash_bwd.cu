@@ -21,12 +21,13 @@
 // at a training shape (Sq = Skv = 1024, D = 64) it is bound by operations.
 // Three variants (the wrapper's `kernel.variant_bwd()` chooses from dtype and
 // head dim, and passes its code in):
-//  * `fa_bwd_wgmma`, bf16 at head dims 64 and 128 (tinyllama-1.1b's
-//    training path): two CUDA kernels on wgmma + TMA, described at the
-//    section below that holds them.  dQ first, whose items also compute delta,
-//    then dK/dV.
-//  * `fa_bwd_bf16_mma`, bf16 at head dims 32 and 80, and `fa_bwd_simt`,
-//    fp32: three CUDA kernels each.
+//  * `fa_bwd_wgmma`, bf16 at every head dim (tinyllama-1.1b's and
+//    stablelm-3b's training paths): two CUDA kernels on wgmma + TMA,
+//    described at the section below that holds them.  dQ first, whose items
+//    also compute delta, then dK/dV.
+//  * `fa_bwd_bf16_mma`, bf16 at every head dim, reached only by an explicit
+//    `variant=` (the earlier design, timed against the wgmma one), and
+//    `fa_bwd_simt`, fp32: three CUDA kernels each.
 //    - `fa_bwd_delta`: delta, one warp a row, fp32.
 //    - `fa_bwd_dkdv_*`: one block per (batch, KV head, 64-row k tile).  It
 //      loops over the q tiles of every query head of the group, so dK and dV
@@ -765,8 +766,8 @@ __global__ void __launch_bounds__(128) fa_bwd_dq_mma(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at head dims 64 and 128: wgmma and TMA (hopper_sm90.cuh), two CUDA
-// kernels a call and no atomics.  Both are persistent (one block per SM
+// bf16: wgmma and TMA (hopper_sm90.cuh), two CUDA kernels a call and no
+// atomics.  Both are persistent (one block per SM
 // walking a list of items, longest first under the causal mask, handed out
 // in a snake: wave w of the list left to right when w is even, right to left
 // when odd, so the blocks that drew the longest items of a wave draw the
@@ -807,7 +808,7 @@ __global__ void __launch_bounds__(128) fa_bwd_dq_mma(BwdParams p) {
 // only partly hide from each other.  So the elementwise pass tests the mask
 // only in tiles that hold a pair it hides (a uniform branch between two
 // copies of the pass; testing every element took 22 instructions an element
-// and a third of the time), and at head dim 64 a tile's second products
+// and a third of the time), and at head dims up to 80 a tile's second products
 // stay in flight while the next tile's first ones are issued
 // (chain_products).
 // ---------------------------------------------------------------------------
@@ -815,41 +816,55 @@ __global__ void __launch_bounds__(128) fa_bwd_dq_mma(BwdParams p) {
 constexpr int kWRows = 128;  // rows of an item: q rows (dQ) or k rows (dK/dV)
 constexpr int kWTile = 64;   // rows of a streamed tile: K/V (dQ), Q/dO (dK/dV)
 
+// Tiles take padded<D>() columns of shared memory (whole 64-column atoms, the
+// last zero-filled past D at head dims 32 and 80; hopper_sm90.cuh).
 template <int D>
 __host__ __device__ constexpr int dq_stages() {
-  return D == 64 ? 6 : 3;  // what fits beside two Q and two dO buffers
+  return padded<D>() == 64 ? 6 : 3;  // what fits beside two Q and two dO buffers
 }
 template <int D>
 __host__ __device__ constexpr int dkdv_stages() {
-  return D == 64 ? 6 : 4;  // what fits beside K and V of the item
+  return padded<D>() == 64 ? 6 : 4;  // what fits beside K and V of the item
+}
+
+// Columns of the second products' accumulators (dQ, dK, dV): D, the last
+// atom's part by a narrower wgmma (wgmma_rs_cols).  padded<D>(), the whole
+// last atom with its zeros, is the measured alternative
+// (scripts/flash_bwd_ablation.py, variant `padded_tail`).
+template <int D>
+__host__ __device__ constexpr int acc_cols() {
+  return D;
 }
 
 template <int D>
 constexpr size_t dq_wgmma_smem_bytes() {
-  // alignment slack; Q and dO, two buffers each of [128][D]; K and V,
-  // dq_stages() stages of [64][D] each; delta of each warpgroup's rows, two
-  // buffers; barriers
-  return 1024 + sizeof(bf16) * (4 * kWRows * D + 2 * dq_stages<D>() * kWTile * D) +
+  // alignment slack; Q and dO, two buffers each of [128][padded D]; K and V,
+  // dq_stages() stages of [64][padded D] each; delta of each warpgroup's
+  // rows, two buffers; barriers
+  constexpr int DP = padded<D>();
+  return 1024 + sizeof(bf16) * (4 * kWRows * DP + 2 * dq_stages<D>() * kWTile * DP) +
          sizeof(float) * 2 * 2 * 64 + 8 * (4 + 2 * dq_stages<D>());
 }
 template <int D>
 constexpr size_t dkdv_wgmma_smem_bytes() {
-  // alignment slack; K and V of the item, [128][D] each; Q and dO,
-  // dkdv_stages() stages of [64][D] each, with 64 rows of lse and delta;
-  // barriers
-  return 1024 + sizeof(bf16) * (2 * kWRows * D + 2 * dkdv_stages<D>() * kWTile * D) +
+  // alignment slack; K and V of the item, [128][padded D] each; Q and dO,
+  // dkdv_stages() stages of [64][padded D] each, with 64 rows of lse and
+  // delta; barriers
+  constexpr int DP = padded<D>();
+  return 1024 + sizeof(bf16) * (2 * kWRows * DP + 2 * dkdv_stages<D>() * kWTile * DP) +
          sizeof(float) * 128 * dkdv_stages<D>() + 8 * (2 + 2 * dkdv_stages<D>());
 }
 
 // Whether a tile's second products stay in flight while the next tile's
 // first ones are issued (one wgmma wait a tile instead of two).  At head dim
 // 128 ptxas serializes every wgmma of a kernel written so (its accumulators
-// take twice the registers), which costs more than the wait saves
-// (scripts/flash_bwd_ablation.py, variants `chained` and `unchained`;
-// PERF.md).
+// take twice the registers), which costs more than the wait saves; at 80
+// (accumulators of 40 registers, not 64) it does not, and the chain saves
+// 2 to 3 % (scripts/flash_bwd_ablation.py, variants `chained` and
+// `unchained`; PERF.md).
 template <int D>
 __host__ __device__ constexpr bool chain_products() {
-  return D == 64;
+  return D <= 80;
 }
 
 struct BwdTma {
@@ -889,39 +904,29 @@ __device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b) {
 }
 
 // rows [pos, pos + ROWS) of one head of a [B, H, S, D] tensor, every
-// 64-column atom, into dst ([D / 64][ROWS][64], swizzled)
+// 64-column atom, into dst ([atoms][ROWS][64], swizzled)
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
                                          int s_first, uint64_t* bar, int pos,
                                          int head, int b) {
 #pragma unroll
-  for (int a = 0; a < D / 64; ++a)
+  for (int a = 0; a < atoms<D>(); ++a)
     tma_load_4d(dst + a * ROWS * 64, map, bar, a * 64, s_first ? pos : head,
                 s_first ? head : pos, b);
 }
 
-// K-major operand, k-step kk, of a [D / 64][ROWS][64] swizzled tile
+// K-major operand, k-step kk, of an [atoms][ROWS][64] swizzled tile
 template <int ROWS>
 __device__ __forceinline__ uint64_t kmajor(const bf16* tile, int kk) {
   return sw128_desc(tile + (kk / 4) * ROWS * 64 + (kk % 4) * 16, 16, 1024);
 }
-// MN-major operand (rows are the reduction index), k-step kk, of a
-// [D / 64][ROWS][64] swizzled tile
+// MN-major operand (rows are the reduction index), k-step kk, of an
+// [atoms][ROWS][64] swizzled tile
 template <int ROWS>
 __device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int kk) {
   return sw128_desc(tile + kk * 16 * 64, ROWS * 128, 1024);
 }
 
-// acc[64 x D] += A[64 x 16] B, B an MN-major operand of D columns
-template <int D>
-__device__ __forceinline__ void wgmma_rs_d(float (&acc)[D / 2],
-                                           const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64) {
-    wgmma_rs_n64<1>(acc, a, db, 1);
-  } else {
-    wgmma_rs_n128<1>(acc, a, db, 1);
-  }
-}
 
 // dS of one 64 x 64 tile of the dQ kernel, from the accumulators of S
 // (sc) and dP (dp), as the bf16 A fragments of the four k-steps of
@@ -1000,17 +1005,19 @@ __global__ void __launch_bounds__(288, 1)
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, BwdParams p,
                     BwdTma t) {
+  constexpr int DP = padded<D>();  // columns of a tile in shared memory
+  constexpr int OC = acc_cols<D>();
   constexpr int KD = D / 16;       // k-steps of S and dP
   constexpr int KN = kWTile / 16;  // k-steps of dQ += dS K
   constexpr int ST = dq_stages<D>();
-  constexpr uint32_t ITEM_TILE = kWRows * D * sizeof(bf16);
-  constexpr uint32_t TILE = kWTile * D * sizeof(bf16);
+  constexpr uint32_t ITEM_TILE = kWRows * DP * sizeof(bf16);  // whole boxes
+  constexpr uint32_t TILE = kWTile * DP * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // [2][NA][128][64]
-  bf16* dOs = Qs + 2 * kWRows * D;                           // [2][NA][128][64]
-  bf16* Ks = dOs + 2 * kWRows * D;                           // [ST][NA][64][64]
-  bf16* Vs = Ks + ST * kWTile * D;                           // [ST][NA][64][64]
-  float* dls = reinterpret_cast<float*>(Vs + ST * kWTile * D);  // [2 wg][2][64]
+  bf16* dOs = Qs + 2 * kWRows * DP;                          // [2][NA][128][64]
+  bf16* Ks = dOs + 2 * kWRows * DP;                          // [ST][NA][64][64]
+  bf16* Vs = Ks + ST * kWTile * DP;                          // [ST][NA][64][64]
+  float* dls = reinterpret_cast<float*>(Vs + ST * kWTile * DP);  // [2 wg][2][64]
   uint64_t* bars = reinterpret_cast<uint64_t*>(dls + 256);
   uint64_t* q_full = bars;           // [2]: Q and dO of an item
   uint64_t* q_empty = bars + 2;      // [2], one arrival per consumer thread
@@ -1048,17 +1055,17 @@ __global__ void __launch_bounds__(288, 1)
       const int qb = n & 1;
       if (n >= 2) mbar_wait(q_empty + qb, (n / 2 - 1) & 1);
       mbar_expect_tx(q_full + qb, 2 * ITEM_TILE);
-      tma_rows<D, kWRows>(Qs + qb * kWRows * D, &tq, t.q_s_first, q_full + qb,
+      tma_rows<D, kWRows>(Qs + qb * kWRows * DP, &tq, t.q_s_first, q_full + qb,
                           q_start, h, b);
-      tma_rows<D, kWRows>(dOs + qb * kWRows * D, &tdo, t.do_s_first, q_full + qb,
+      tma_rows<D, kWRows>(dOs + qb * kWRows * DP, &tdo, t.do_s_first, q_full + qb,
                           q_start, h, b);
       for (int kt = lo; kt < hi; ++kt, ++ring) {
         const int s = ring % ST;
         if (ring >= ST) mbar_wait(empty + s, (ring / ST - 1) & 1);
         mbar_expect_tx(full + s, 2 * TILE);
-        tma_rows<D, kWTile>(Ks + s * kWTile * D, &tk, t.k_s_first, full + s,
+        tma_rows<D, kWTile>(Ks + s * kWTile * DP, &tk, t.k_s_first, full + s,
                             kt * kWTile, h / group, b);
-        tma_rows<D, kWTile>(Vs + s * kWTile * D, &tv, t.v_s_first, full + s,
+        tma_rows<D, kWTile>(Vs + s * kWTile * DP, &tv, t.v_s_first, full + s,
                             kt * kWTile, h / group, b);
       }
     }
@@ -1077,14 +1084,14 @@ __global__ void __launch_bounds__(288, 1)
     int lo, hi;
     k_tile_range(p, q_start, kWRows, kWTile, &lo, &hi);
     const int qb = n & 1;
-    const bf16* Qw = Qs + qb * kWRows * D + wg * 64 * 64;  // this warpgroup's rows
-    const bf16* dOw = dOs + qb * kWRows * D + wg * 64 * 64;
+    const bf16* Qw = Qs + qb * kWRows * DP + wg * 64 * 64;  // this warpgroup's rows
+    const bf16* dOw = dOs + qb * kWRows * DP + wg * 64 * 64;
     const int qw_start = q_start + wg * 64;
     const long long bhrow = static_cast<long long>(b) * p.hq + h;
     // delta of the warpgroup's 64 rows, two threads a row: O from device
     // memory, its loads (and those of lse) issued before the wait for Q and
     // dO, then dO from the swizzled buffer (16-byte chunk c of row R sits at
-    // chunk c ^ (R % 8) of its atom)
+    // chunk c % 8 ^ (R % 8) of atom c / 8; D / 8 chunks, none of the zeros)
     const int r_d = wt / 2, half = wt % 2;
     const int qpos_d = qw_start + r_d;
     const int R = wg * 64 + r_d;  // row of the 128-row buffer
@@ -1111,7 +1118,7 @@ __global__ void __launch_bounds__(288, 1)
     float* dlw = dls + (wg * 2 + qb) * 64;
     {
       float acc = 0.f;
-      const bf16* drow = dOs + qb * kWRows * D + R * 64;
+      const bf16* drow = dOs + qb * kWRows * DP + R * 64;
 #pragma unroll
       for (int i = 0; i < D / 16; ++i) {
         const int c = half * (D / 16) + i;  // 16-byte chunk of the row
@@ -1131,12 +1138,12 @@ __global__ void __launch_bounds__(288, 1)
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) dl_s[r] = dlw[warp * 16 + g + r * 8] * p.scale;
-    float dq[D / 2];
+    float dq[OC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int i = 0; i < OC / 2; ++i) dq[i] = 0.f;
 
-    // At head dim 64 the dQ product of a tile runs on while the next tile's S
-    // and dP are issued: one wait covers both, and the tile's stage is
+    // At head dims up to 80 the dQ product of a tile runs on while the next
+    // tile's S and dP are issued: one wait covers both, and the tile's stage is
     // released after it (chain_products).
     uint32_t da[KN][4] = {};
     int pending = -1;  // the stage whose K the dQ product in flight reads
@@ -1155,8 +1162,8 @@ __global__ void __launch_bounds__(288, 1)
         mbar_arrive(empty + s);
         continue;
       }
-      const bf16* Kt = Ks + s * kWTile * D;
-      const bf16* Vt = Vs + s * kWTile * D;
+      const bf16* Kt = Ks + s * kWTile * DP;
+      const bf16* Vt = Vs + s * kWTile * DP;
       // S = Q K^T and dP = dO V^T; the first k-step only writes
       float sc[32], dp[32];
       wgmma_fence();
@@ -1189,7 +1196,7 @@ __global__ void __launch_bounds__(288, 1)
       for (int kk = 0; kk < KN; ++kk) fence_regs(da[kk]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KN; ++kk) wgmma_rs_d<D>(dq, da[kk], mnmajor<kWTile>(Kt, kk));
+      for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dq, da[kk], mnmajor<kWTile>(Kt, kk));
       wgmma_commit();
       if constexpr (chain_products<D>()) {
         pending = s;
@@ -1228,17 +1235,19 @@ __global__ void __launch_bounds__(384, 1)
                       const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo, BwdParams p,
                       BwdTma t) {
+  constexpr int DP = padded<D>();  // columns of a tile in shared memory
+  constexpr int OC = acc_cols<D>();
   constexpr int KD = D / 16;       // k-steps of S^T and dP^T
   constexpr int KN = kWTile / 16;  // k-steps of dV += P^T dO and dK += dS^T Q
   constexpr int ST = dkdv_stages<D>();
-  constexpr uint32_t ITEM_TILE = kWRows * D * sizeof(bf16);
-  constexpr uint32_t TILE = kWTile * D * sizeof(bf16);
+  constexpr uint32_t ITEM_TILE = kWRows * DP * sizeof(bf16);  // whole boxes
+  constexpr uint32_t TILE = kWTile * DP * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));  // [NA][128][64]
-  bf16* Vs = Ks + kWRows * D;                                // [NA][128][64]
-  bf16* Qs = Vs + kWRows * D;                                // [ST][NA][64][64]
-  bf16* dOs = Qs + ST * kWTile * D;                          // [ST][NA][64][64]
-  float* stats = reinterpret_cast<float*>(dOs + ST * kWTile * D);  // [ST][2][64]
+  bf16* Vs = Ks + kWRows * DP;                               // [NA][128][64]
+  bf16* Qs = Vs + kWRows * DP;                               // [ST][NA][64][64]
+  bf16* dOs = Qs + ST * kWTile * DP;                         // [ST][NA][64][64]
+  float* stats = reinterpret_cast<float*>(dOs + ST * kWTile * DP);  // [ST][2][64]
   uint64_t* bars = reinterpret_cast<uint64_t*>(stats + ST * 128);
   uint64_t* kv_full = bars;          // K and V of an item
   uint64_t* kv_empty = bars + 1;     // one arrival per consumer thread
@@ -1284,9 +1293,9 @@ __global__ void __launch_bounds__(384, 1)
         const int s = ring % ST;
         if (ring >= ST) mbar_wait(empty + s, (ring / ST - 1) & 1);
         mbar_expect_tx(full + s, 2 * TILE + 128 * sizeof(float));
-        tma_rows<D, kWTile>(Qs + s * kWTile * D, &tq, t.q_s_first, full + s,
+        tma_rows<D, kWTile>(Qs + s * kWTile * DP, &tq, t.q_s_first, full + s,
                             q_start, h, b);
-        tma_rows<D, kWTile>(dOs + s * kWTile * D, &tdo, t.do_s_first, full + s,
+        tma_rows<D, kWTile>(dOs + s * kWTile * DP, &tdo, t.do_s_first, full + s,
                             q_start, h, b);
         bulk_load(stats + s * 128,
                   p.delta + ((static_cast<long long>(b) * p.hq + h) * t.stat_blocks +
@@ -1313,13 +1322,13 @@ __global__ void __launch_bounds__(384, 1)
     const bf16* Vw = Vs + wg * 64 * 64;
     const int kw_start = k_start + wg * 64;
     const int krow0 = kw_start + warp * 16 + g;  // rows g and g + 8 of the warp's 16
-    float dk[D / 2], dv[D / 2];
+    float dk[OC / 2], dv[OC / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < OC / 2; ++i) dk[i] = dv[i] = 0.f;
     mbar_wait(kv_full, n & 1);
 
-    // At head dim 64 dV and dK of a step run on while the next step's S^T and
-    // dP^T are issued: one wait covers both, and the step's stage is released
+    // At head dims up to 80 dV and dK of a step run on while the next step's
+    // S^T and dP^T are issued: one wait covers both, and the step's stage is released
     // after it (chain_products).
     uint32_t pa[KN][4] = {}, sa[KN][4] = {};
     int pending = -1;  // the stage whose Q and dO the products in flight read
@@ -1339,8 +1348,8 @@ __global__ void __launch_bounds__(384, 1)
         mbar_arrive(empty + s);
         continue;
       }
-      const bf16* Qt = Qs + s * kWTile * D;
-      const bf16* dOt = dOs + s * kWTile * D;
+      const bf16* Qt = Qs + s * kWTile * DP;
+      const bf16* dOt = dOs + s * kWTile * DP;
       const float* lse2 = stats + s * 128;  // base 2
       const float* dl = lse2 + 64;
       // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
@@ -1384,9 +1393,9 @@ __global__ void __launch_bounds__(384, 1)
       }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KN; ++kk) wgmma_rs_d<D>(dv, pa[kk], mnmajor<kWTile>(dOt, kk));
+      for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dv, pa[kk], mnmajor<kWTile>(dOt, kk));
 #pragma unroll
-      for (int kk = 0; kk < KN; ++kk) wgmma_rs_d<D>(dk, sa[kk], mnmajor<kWTile>(Qt, kk));
+      for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dk, sa[kk], mnmajor<kWTile>(Qt, kk));
       wgmma_commit();
       if constexpr (chain_products<D>()) {
         pending = s;
@@ -1495,13 +1504,7 @@ cudaError_t launch_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_d(const BwdParams& p, int batch, int variant, cudaStream_t s) {
-  if (variant == kVarWgmma) {
-    if constexpr (D == 64 || D == 128) {
-      return launch_wgmma<D>(p, batch, s);
-    } else {
-      return cudaErrorInvalidValue;  // no wgmma instance at this head dim
-    }
-  }
+  if (variant == kVarWgmma) return launch_wgmma<D>(p, batch, s);
   const dim3 rows((p.sq + 7) / 8, p.hq, batch);
   const dim3 k_tiles((p.skv + kTile - 1) / kTile, p.hkv, batch);
   const dim3 q_tiles((p.sq + kTile - 1) / kTile, p.hq, batch);
@@ -1523,8 +1526,7 @@ cudaError_t launch_d(const BwdParams& p, int batch, int variant, cudaStream_t s)
 }  // namespace
 
 // variant: 0 = fa_bwd_simt (float32 tensors), 1 = fa_bwd_bf16_mma, 2 =
-// fa_bwd_wgmma (bfloat16 tensors; head dims 64 and 128), chosen by the
-// wrapper.  q, k, v, o and dout come with their strides in elements (the last
+// fa_bwd_wgmma (bfloat16 tensors), chosen by the wrapper.  q, k, v, o and dout come with their strides in elements (the last
 // dimension of each has stride 1; for bfloat16 every base and every row start
 // is on a 16-byte boundary); lse [B, Hq, Sq] fp32 contiguous is the
 // forward's; delta is fp32 scratch: [B, Hq, Sq] delta for variants 0 and 1,

@@ -12,8 +12,9 @@
 // kernel does hundreds of operations per byte: it is bound by operations, not
 // by bytes.  Three kernels, the one that runs fixed by (dtype, head dim); the
 // rule is the wrapper's `kernel.variant()`, which passes its choice in:
-//  * `fa_fwd_wgmma`, bf16 at head dims 64 and 128 (tinyllama-1.1b;
-//    llama3.2-3b, nemotron-4-15b): Hopper's own path to the tensor cores.
+//  * `fa_fwd_wgmma`, bf16 at every head dim (32, 64, 80, 128: tinyllama-1.1b;
+//    stablelm-3b; llama3.2-3b, nemotron-4-15b): Hopper's own path to the
+//    tensor cores.
 //    A persistent grid (one block per SM, whose fixed cost is then paid
 //    once, not per q tile); two warpgroups share each K/V tile (128 q rows
 //    an item, 128 kv rows a tile) and run free of each other, so one
@@ -23,11 +24,11 @@
 //    one warpgroup do not overlap: issuing Q K^T of the next tile with P V
 //    of this one measured slower at head dim 64, with the wgmma kept
 //    pipelined or not (PERF.md).
-//  * `fa_fwd_bf16_mma`, bf16 at head dims 32 and 80 (stablelm-3b: 160-byte
-//    rows, which the 128-byte swizzle does not tile): both products on
-//    `mma.sync.m16n8k16` (fp32 accumulate) with the probabilities in
-//    registers; K and V tiles arrive by `cp.async` while the previous tile
-//    is computed on.
+//  * `fa_fwd_bf16_mma`, bf16 at every head dim, reached only by an explicit
+//    `variant=` (the earlier design, timed against the wgmma one): both
+//    products on `mma.sync.m16n8k16` (fp32 accumulate) with the
+//    probabilities in registers; K and V tiles arrive by `cp.async` while
+//    the previous tile is computed on.
 //  * `fa_fwd_simt`, fp32: full fp32 products (TF32 would lose the 2e-5
 //    agreement with the plain version) on the fp32 pipes with a 4x4 register
 //    micro-tile per thread.
@@ -502,24 +503,26 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16_mma(FaParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path at head dims 64 and 128: wgmma and TMA (hopper_sm90.cuh).  A
-// persistent grid, one block per SM, walks the list of (q tile, head, batch)
-// items, longest causal rows first, the block taking every gridDim-th item.
-// 288 threads: two consumer warpgroups and one producer warp.  Consumer
-// warpgroup wg owns the item's q rows wg*64 .. wg*64+63; both share every K/V
-// tile of 128 rows, which the producer warp brings by TMA into a ring of
-// kv_stages() stages (128-byte swizzle, one mbarrier each for K and for V,
-// one for the consumers' release), running on into the next item while the
-// consumers finish this one; Q has two buffers for the same reason.  S = Q
-// K^T is wgmma with both operands in shared memory (K-major, as stored); the
-// softmax runs on the accumulator in registers; P, rounded to bf16, stays in
-// registers as the A operand of O += P V, whose B operand V is MN-major
-// (transpose bit set).  The two warpgroups run free of each other, so the
-// tensor cores serve one while the other runs its softmax: turns taken on
-// named barriers ("ping-pong") measured 4.5 % slower at both head dims
-// (PERF.md).  The masks, the scale folded into ex2, masked logits exactly
-// kNegInf, l clamped at 1e-30 and exact 0 for a row that sees no key are the
-// mma.sync kernel's.
+// bf16 path: wgmma and TMA (hopper_sm90.cuh).  A persistent grid, one block
+// per SM, walks the list of (q tile, head, batch) items, longest causal rows
+// first, the block taking every gridDim-th item.  288 threads: two consumer
+// warpgroups and one producer warp.  Consumer warpgroup wg owns the item's q
+// rows wg*64 .. wg*64+63; both share every K/V tile of 128 rows, which the
+// producer warp brings by TMA into a ring of kv_stages() stages (128-byte
+// swizzle in whole 64-column atoms: at head dims 32 and 80 the last atom is
+// zero-filled past D, see padded() in hopper_sm90.cuh; one mbarrier each for
+// K and for V, one for the consumers' release), running on into the next item
+// while the consumers finish this one; Q has two buffers for the same reason.
+// S = Q K^T is wgmma with both operands in shared memory (K-major, as stored;
+// D / 16 k-steps, none over the zeros); the softmax runs on the accumulator in
+// registers; P, rounded to bf16, stays in registers as the A operand of O +=
+// P V, whose B operand V is MN-major (transpose bit set; at D 80 an N 64
+// wgmma on the first atom and an N 16 one on the second, at D 32 one N 32).
+// The two warpgroups run free of each other, so the tensor cores serve one
+// while the other runs its softmax: turns taken on named barriers
+// ("ping-pong") measured 4.5 % slower at both head dims (PERF.md).  The
+// masks, the scale folded into ex2, masked logits exactly kNegInf, l clamped
+// at 1e-30 and exact 0 for a row that sees no key are the mma.sync kernel's.
 // ---------------------------------------------------------------------------
 
 constexpr int WBM = 128;  // q rows per item
@@ -527,7 +530,7 @@ constexpr int WBN = 128;  // kv rows per tile
 
 template <int D>
 __host__ __device__ constexpr int kv_stages() {
-  return D == 64 ? 3 : 2;  // what fits beside two Q buffers in 227 KB
+  return padded<D>() == 64 ? 3 : 2;  // what fits beside two Q buffers in 227 KB
 }
 
 struct FaTma {
@@ -539,9 +542,10 @@ struct FaTma {
 
 template <int D>
 constexpr size_t wgmma_smem_bytes() {
-  // alignment slack; Q, two buffers of [128][D]; K and V, kv_stages() stages
-  // of [128][D] each; barriers
-  return 1024 + sizeof(__nv_bfloat16) * (2 * WBM * D + 2 * kv_stages<D>() * WBN * D) +
+  // alignment slack; Q, two buffers of [128][padded D]; K and V, kv_stages()
+  // stages of [128][padded D] each; barriers
+  constexpr int DP = padded<D>();
+  return 1024 + sizeof(__nv_bfloat16) * (2 * WBM * DP + 2 * kv_stages<D>() * WBN * DP) +
          8 * (4 + 3 * kv_stages<D>());
 }
 
@@ -567,17 +571,18 @@ __global__ void __launch_bounds__(288, 1)
                  const __grid_constant__ CUtensorMap tv, FaParams p,
                  FaTma t) {
   using bf16 = __nv_bfloat16;
-  constexpr int NA = D / 64;     // 64-column atoms of a row
+  constexpr int NA = atoms<D>();  // 64-column atoms of a row, the last maybe part
+  constexpr int DP = padded<D>();  // their columns in shared memory
   constexpr int KD = D / 16;     // k-steps of Q K^T
   constexpr int KN = WBN / 16;   // k-steps of P V
   constexpr int NS = WBN / 8;    // 8-column groups of the logits
   constexpr int ST = kv_stages<D>();
-  constexpr uint32_t TILE = WBN * D * sizeof(bf16);
+  constexpr uint32_t TILE = WBN * DP * sizeof(bf16);  // the whole box
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // [2][NA][128][64]
-  bf16* Ks = Qs + 2 * WBM * D;                               // [ST][NA][128][64]
-  bf16* Vs = Ks + ST * WBN * D;                              // [ST][NA][128][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + ST * WBN * D);
+  bf16* Ks = Qs + 2 * WBM * DP;                              // [ST][NA][128][64]
+  bf16* Vs = Ks + ST * WBN * DP;                             // [ST][NA][128][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + ST * WBN * DP);
   uint64_t* q_full = bars;               // [2]
   uint64_t* q_empty = bars + 2;          // [2], one arrival per consumer thread
   uint64_t* full_k = bars + 4;           // [ST]
@@ -620,15 +625,15 @@ __global__ void __launch_bounds__(288, 1)
       const int hk = it.h / (p.hq / p.hkv);
       const int qb = n & 1;
       if (n >= 2) mbar_wait(q_empty + qb, (n / 2 - 1) & 1);
-      mbar_expect_tx(q_full + qb, WBM * D * sizeof(bf16));
-      load(&tq, t.q_s_first, Qs + qb * WBM * D, q_full + qb, it.q_start, it.h, it.b);
+      mbar_expect_tx(q_full + qb, WBM * DP * sizeof(bf16));
+      load(&tq, t.q_s_first, Qs + qb * WBM * DP, q_full + qb, it.q_start, it.h, it.b);
       for (int kt = it.lo; kt < it.hi; ++kt, ++ring) {
         const int s = ring % ST;
         if (ring >= ST) mbar_wait(empty + s, (ring / ST - 1) & 1);
         mbar_expect_tx(full_k + s, TILE);
-        load(&tk, t.k_s_first, Ks + s * WBN * D, full_k + s, kt * WBN, hk, it.b);
+        load(&tk, t.k_s_first, Ks + s * WBN * DP, full_k + s, kt * WBN, hk, it.b);
         mbar_expect_tx(full_v + s, TILE);
-        load(&tv, t.v_s_first, Vs + s * WBN * D, full_v + s, kt * WBN, hk, it.b);
+        load(&tv, t.v_s_first, Vs + s * WBN * DP, full_v + s, kt * WBN, hk, it.b);
       }
     }
     return;
@@ -641,7 +646,7 @@ __global__ void __launch_bounds__(288, 1)
     const FaItem it = fa_item(p, t, j);
     const int n_tiles = it.hi - it.lo;  // 0 or less: no row sees a key
     const int qb = n & 1;
-    const bf16* Qw = Qs + qb * WBM * D + wg * 64 * 64;  // this warpgroup's rows
+    const bf16* Qw = Qs + qb * WBM * DP + wg * 64 * 64;  // this warpgroup's rows
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -656,7 +661,7 @@ __global__ void __launch_bounds__(288, 1)
       const int s = ring % ST;
       const uint32_t ph = (ring / ST) & 1;
       const int k_start = (it.lo + i) * WBN;
-      const bf16* Kt = Ks + s * WBN * D;
+      const bf16* Kt = Ks + s * WBN * DP;
 
       // S = Q K^T; the first k-step only writes the accumulator
       float sc[WBN / 2];
@@ -737,13 +742,9 @@ __global__ void __launch_bounds__(288, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KN; ++kk) {
-        // rows 16kk .. 16kk + 15 of V; the second atom (D = 128) is LBO away
-        const uint64_t dv = sw128_desc(Vs + s * WBN * D + kk * 16 * 64, WBN * 128, 1024);
-        if constexpr (D == 64) {
-          wgmma_rs_n64<1>(o, pa[kk], dv, 1);
-        } else {
-          wgmma_rs_n128<1>(o, pa[kk], dv, 1);
-        }
+        // rows 16kk .. 16kk + 15 of V; the second atom is LBO away
+        const uint64_t dv = sw128_desc(Vs + s * WBN * DP + kk * 16 * 64, WBN * 128, 1024);
+        wgmma_rs_cols<D, WBN * 128>(o, pa[kk], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -814,13 +815,7 @@ cudaError_t launch_wgmma(const FaParams& p, int batch, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_d(const FaParams& p, int batch, int variant,
                      cudaStream_t stream) {
-  if (variant == kWgmma) {
-    if constexpr (D == 64 || D == 128) {
-      return launch_wgmma<D>(p, batch, stream);
-    } else {
-      return cudaErrorInvalidValue;  // no wgmma instance at this head dim
-    }
-  }
+  if (variant == kWgmma) return launch_wgmma<D>(p, batch, stream);
   if (variant == kMma) {
     constexpr size_t smem = sizeof(__nv_bfloat16) * (64 + 4 * BN) * (D + 8);
     return launch<fa_fwd_bf16_mma<D>, kMma, 128, smem>(p, batch, stream);

@@ -4,9 +4,11 @@ The sources ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` are compiled at
 first use by ``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded
 with ``ctypes``), one library each.  The forward holds three kernels behind
 one C function, the backward three variants of two or three kernels behind
-another; which runs is fixed by the dtype and the head dim alone:
-``variant`` and ``variant_bwd`` are that rule, and the wrappers pass their
-choice to the C functions, which launch what they are told.
+another; which runs is fixed by the dtype alone (bf16: wgmma + TMA, float32:
+the fp32 pipes, at every head dim): ``variant`` and ``variant_bwd`` are that
+rule, and the wrappers pass their choice to the C functions, which launch
+what they are told.  The earlier bf16 design, ``mma.sync``, runs only when a
+caller names it (``variant=``), to be timed against the rule's.
 """
 from __future__ import annotations
 
@@ -23,9 +25,6 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
 SOURCE_BWD = SOURCE.with_name("flash_bwd.cu")
 HEAD_DIMS = (32, 64, 80, 128)     # multiples of 16 that a ported config has
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# bf16 head dims of the wgmma + TMA kernel: rows of 128 or 256 bytes, whole
-# 64-column atoms of the 128-byte swizzle (80 is not)
-WGMMA_HEAD_DIMS = (64, 128)
 # the variants, by the code the C function takes (FaVariant in the source)
 VARIANT_CODES = {"fa_fwd_simt": 0, "fa_fwd_bf16_mma": 1, "fa_fwd_wgmma": 2}
 # the CUDA kernels one call launches, by variant
@@ -90,36 +89,40 @@ def launch_counts() -> Dict[str, int]:
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that runs for this dtype and head dim: ``fa_fwd_wgmma`` (bf16 at head dims 64 and 128: wgmma, TMA),
-    ``fa_fwd_bf16_mma`` (bf16 at 32 and 80: mma.sync) or ``fa_fwd_simt``
-    (float32, on the fp32 pipes)."""
+    """The kernel that runs for this dtype and head dim: ``fa_fwd_wgmma``
+    (bf16: wgmma, TMA) or ``fa_fwd_simt`` (float32, on the fp32 pipes)."""
     if dtype not in DTYPE_CODES or head_dim not in HEAD_DIMS:
         raise ValueError(f"no kernel for {dtype} at head dim {head_dim}")
-    if dtype == torch.float32:
-        return "fa_fwd_simt"
-    return "fa_fwd_wgmma" if head_dim in WGMMA_HEAD_DIMS else "fa_fwd_bf16_mma"
+    return "fa_fwd_simt" if dtype == torch.float32 else "fa_fwd_wgmma"
 
 
 def variant_bwd(dtype: torch.dtype, head_dim: int) -> str:
     """The backward that runs for this dtype and head dim: ``fa_bwd_wgmma``
-    (bf16 at head dims 64 and 128: wgmma, TMA), ``fa_bwd_bf16_mma`` (bf16 at
-    32 and 80: mma.sync) or ``fa_bwd_simt`` (float32, on the fp32 pipes)."""
+    (bf16: wgmma, TMA) or ``fa_bwd_simt`` (float32, on the fp32 pipes)."""
     if dtype not in DTYPE_CODES or head_dim not in HEAD_DIMS:
         raise ValueError(f"no kernel for {dtype} at head dim {head_dim}")
-    if dtype == torch.float32:
-        return "fa_bwd_simt"
-    return "fa_bwd_wgmma" if head_dim in WGMMA_HEAD_DIMS else "fa_bwd_bf16_mma"
+    return "fa_bwd_simt" if dtype == torch.float32 else "fa_bwd_wgmma"
 
 
-def _bwd_takes(name: str, dtype: torch.dtype, head_dim: int) -> bool:
-    """Whether the backward variant ``name`` has a kernel for this dtype and
-    head dim: the wgmma one only at its head dims, the mma.sync one at every
-    bf16 head dim, the fp32-pipe one for float32."""
-    if name == "fa_bwd_simt":
-        return dtype == torch.float32
-    if name == "fa_bwd_bf16_mma":
-        return dtype == torch.bfloat16
-    return dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
+def _takes(name: str, dtype: torch.dtype) -> bool:
+    """Whether the forward or backward variant ``name`` has a kernel for this
+    dtype (each has one at every head dim of HEAD_DIMS): the fp32-pipe ones
+    for float32, the wgmma and the mma.sync ones for bf16."""
+    return dtype == (torch.float32 if name.endswith("_simt") else torch.bfloat16)
+
+
+def _chosen(name: Optional[str], codes: Dict[str, int], dtype: torch.dtype,
+            head_dim: int) -> str:
+    """``name``, or the rule's variant (of the forward's ``codes`` or the
+    backward's) where it is None; raises where the named variant has no
+    kernel for this dtype and head dim."""
+    if name is None:
+        rule = variant if codes is VARIANT_CODES else variant_bwd
+        return rule(dtype, head_dim)
+    if name not in codes or not _takes(name, dtype):
+        raise ValueError(f"variant {name!r} has no kernel for {dtype} at "
+                         f"head dim {head_dim}")
+    return name
 
 
 def _aligned16(x: torch.Tensor) -> bool:
@@ -136,13 +139,18 @@ def flash_attention_fwd(
     causal: bool = True,
     window: Optional[int] = None,
     return_lse: bool = False,
+    variant: Optional[str] = None,
 ):
     """Launch the kernel on CUDA tensors.  Raises on anything it does not take.
 
     With ``return_lse`` also returns each row's log-sum-exp ``[B, Hq, Sq]``
     fp32 (natural-log units of the scaled logits; ``-0.7 * float32 max`` for a
-    row that sees no key), which the backward needs."""
+    row that sees no key), which the backward needs.  ``variant`` names the
+    kernel to run instead of ``variant()``'s choice, so that two of them can
+    be timed on the same inputs; one that does not take the dtype and head
+    dim raises."""
     _check(q, k, v, window)
+    variant = _chosen(variant, VARIANT_CODES, q.dtype, q.shape[-1])
     _check_cuda(q)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -158,7 +166,7 @@ def flash_attention_fwd(
             B, Hq, Hkv, Sq, Skv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             int(causal), window or 0, math.log2(math.e) / math.sqrt(D),
-            VARIANT_CODES[variant(q.dtype, D)], stream)
+            VARIANT_CODES[variant], stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} "
                            f"({lib.fa_error_string(err).decode()})")
@@ -234,11 +242,7 @@ def flash_attention_bwd(
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be [B, Hq, Sq] float32, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if variant is None:
-        variant = variant_bwd(q.dtype, D)
-    elif variant not in VARIANT_CODES_BWD or not _bwd_takes(variant, q.dtype, D):
-        raise ValueError(f"backward variant {variant!r} has no kernel for "
-                         f"{q.dtype} at head dim {D}")
+    variant = _chosen(variant, VARIANT_CODES_BWD, q.dtype, D)
     _check_cuda(q)
     # out and dO only need rows with a unit last stride (and, for bf16, on
     # 16-byte boundaries, which TMA and 16-byte loads take): anything else is

@@ -27,8 +27,14 @@ from repro_torch.models.common import get_model, resolve_device
 SEQ_KEYS = ("k", "v")
 
 
-def pad_cache_to(cache: dict, max_len: int) -> dict:
-    """Grow the seq dim of a prefill cache so decode can append."""
+def pad_cache_to(cache: dict, max_len: int, window: Optional[int] = None) -> dict:
+    """Grow the seq dim of a prefill cache so decode can append.  Under the
+    config's sliding ``window`` it grows to the window at most: a cache of the
+    window's length is a ring (slot = position % window) that decode writes
+    in place, and a longer one would be read as positions 0, 1, ... (the JAX
+    package's ``pad_cache_to`` pads the ring all the same)."""
+    if window:
+        max_len = min(max_len, window)
     out = {}
     for key, val in cache.items():
         if isinstance(val, dict):
@@ -68,7 +74,7 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int,
     sync(device)
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": prompts})
-    cache = pad_cache_to(cache, prompts.shape[1] + gen)
+    cache = pad_cache_to(cache, prompts.shape[1] + gen, cfg.window)
     sync(device)
     t_prefill = time.perf_counter() - t0
 

@@ -272,6 +272,14 @@ def attn_block(
             S_cache = cache_k.shape[2]
             ring = window is not None and S_cache == window
             slot = cur_len % window if ring else cur_len
+            if not ring and slot + S > S_cache:
+                # a slice past the end is empty: the new K and V would be
+                # dropped without a sound (the JAX package clamps the write
+                # and overwrites the last slot instead)
+                raise ValueError(
+                    f"decode writes positions {slot}..{slot + S - 1} past the "
+                    f"end of a cache of {S_cache}: pad it first "
+                    f"(launch.serve.pad_cache_to)")
             cache_k[:, :, slot:slot + S] = k.to(cache_k.dtype)
             cache_v[:, :, slot:slot + S] = v.to(cache_v.dtype)
             # absolute positions of cache entries

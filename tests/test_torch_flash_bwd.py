@@ -112,6 +112,41 @@ def test_bwd_ref_matches_jax_grad_through_flash_attention(window):
         assert rel_err(g, np.asarray(r)) < GRAD_TOL, name
 
 
+def test_plain_forward_equals_the_packed_jax_forward():
+    """K1's plain version against the JAX package's causal-packed blocked
+    forward (``causal_pack=True``), at the shape and blocks of
+    tests/test_flash_vjp.py::test_packed_equals_unpacked_fwd, within that
+    test's 1e-5 (absolute)."""
+    b, h, s, d = 1, 2, 512, 32
+    q, k, v = _arrays(7, *[(b, h, s, d)] * 3)
+    pos = jnp.arange(s, dtype=jnp.int32)
+    packed = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 pos, pos, True, None, 128, 128, True)
+    out = attention_ref(to_torch(q), to_torch(k), to_torch(v), causal=True)
+    assert float((out - to_torch(np.asarray(packed))).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_plain_gradient_matches_jax_grad_through_the_packed_forward(window):
+    """torch autograd through K1's plain version against jax.grad through
+    the packed flash attention, on sum(out^2) at the shape and blocks of
+    tests/test_flash_vjp.py::test_flash_vjp_matches_dense (its pack=True
+    half)."""
+    q, k, v, _ = _qkv(8)
+    pos = jnp.arange(S, dtype=jnp.int32)
+
+    def f(q, k, v):
+        return jnp.sum(jax_flash_attention(q, k, v, pos, pos, True, window,
+                                           64, 64, True) ** 2)
+
+    ref = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ins = [to_torch(x).requires_grad_() for x in (q, k, v)]
+    out = attention_ref(*ins, causal=True, window=window)
+    got = torch.autograd.grad((out ** 2).sum(), ins)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert rel_err(g, np.asarray(r)) < GRAD_TOL, name
+
+
 # (B, Hq, Hkv, Sq, Skv, D), causal, window: GQA, MQA, Skv != Sq both ways
 FUNCTION_CASES = [
     ((2, 4, 2, 33, 33, 32), True, None),
@@ -194,12 +229,11 @@ def test_gqa_gradient_sums_every_query_head_of_the_group():
 @pytest.mark.parametrize("arch", [a for a in PORTED_ARCHS
                                   if get_config(a).family != "ssm"])
 def test_backward_variant_of_every_ported_config(arch):
-    """bf16 at head dims 64 and 128 (tinyllama-1.1b; llama3.2-3b,
-    nemotron-4-15b) runs the wgmma backward, 80 (stablelm-3b) the mma.sync
-    one, float32 always the fp32-pipe one."""
+    """bf16 at every ported config's head dim (64: tinyllama-1.1b; 80:
+    stablelm-3b; 128: llama3.2-3b, nemotron-4-15b) runs the wgmma backward,
+    float32 always the fp32-pipe one."""
     d = get_config(arch).resolved_head_dim
-    expected = "fa_bwd_wgmma" if d in (64, 128) else "fa_bwd_bf16_mma"
-    assert fa.variant_bwd(torch.bfloat16, d) == expected
+    assert fa.variant_bwd(torch.bfloat16, d) == "fa_bwd_wgmma"
     assert fa.variant_bwd(torch.float32, d) == "fa_bwd_simt"
 
 
@@ -270,9 +304,9 @@ def _offset(shape, dtype, elements=1):
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 @pytest.mark.parametrize("bad", ["base", "rows"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_backward_wrapper_refuses_what_tma_cannot_take(which, bad, d):
-    """bf16 at head dims 64 and 128 reaches the wgmma backward, which loads
+    """bf16 at every head dim reaches the wgmma backward, which loads
     q, k and v by TMA: a base or a row stride off a 16-byte boundary raises,
     on CPU tensors, before the device check; aligned inputs reach it."""
     bf = torch.bfloat16
@@ -293,7 +327,7 @@ def test_backward_wrapper_refuses_what_tma_cannot_take(which, bad, d):
 
 
 @pytest.mark.parametrize("name,dtype,d", [
-    ("fa_bwd_wgmma", torch.bfloat16, 32), ("fa_bwd_wgmma", torch.bfloat16, 80),
+    ("fa_bwd_wgmma", torch.float32, 32), ("fa_bwd_wgmma", torch.float32, 80),
     ("fa_bwd_wgmma", torch.float32, 64), ("fa_bwd_bf16_mma", torch.float32, 64),
     ("fa_bwd_simt", torch.bfloat16, 128), ("fa_bwd_none", torch.bfloat16, 64)])
 def test_explicit_backward_variant_that_does_not_take_raises(name, dtype, d):
@@ -308,7 +342,8 @@ def test_explicit_backward_variant_that_does_not_take_raises(name, dtype, d):
 
 
 @pytest.mark.parametrize("name,dtype,d", [
-    ("fa_bwd_wgmma", torch.bfloat16, 64), ("fa_bwd_wgmma", torch.bfloat16, 128),
+    ("fa_bwd_wgmma", torch.bfloat16, 32), ("fa_bwd_wgmma", torch.bfloat16, 64),
+    ("fa_bwd_wgmma", torch.bfloat16, 80), ("fa_bwd_wgmma", torch.bfloat16, 128),
     ("fa_bwd_bf16_mma", torch.bfloat16, 64), ("fa_bwd_bf16_mma", torch.bfloat16, 80),
     ("fa_bwd_simt", torch.float32, 64)])
 def test_explicit_backward_variant_that_takes_reaches_the_device_check(name, dtype, d):

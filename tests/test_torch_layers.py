@@ -222,6 +222,56 @@ def test_attn_block_decode_append(window, cache_len, cur):
     assert rel_err(out2, np.asarray(ref)) < TOL_CHAIN
 
 
+def test_decode_past_the_end_of_a_linear_cache_raises():
+    """A decode step that would write past the end of a cache that is not a
+    ring raises: torch would assign into an empty slice and drop the new
+    token's K and V.  The JAX package clamps the write and overwrites the
+    last slot instead; on the tinyllama smoke config in fp32 its logits then
+    stand far (0.43 to 0.46 relative, by the weights) from its own decode
+    from a padded cache, which the port's padded decode matches.  Recorded here: the reference's
+    behaviour, not the port's."""
+    import jax
+
+    from repro.models.common import get_model as jax_model
+    from repro_torch.models.common import get_model
+    from repro_torch.testing import from_jax_params
+
+    jcfg, pcfg = _both()
+    rng = _rng(12)
+    p = _attn_params(rng, jcfg)
+    hd = jcfg.resolved_head_dim
+    x = _f32(rng, 2, 1, jcfg.d_model)
+    full = {"k": to_torch(_f32(rng, 2, jcfg.n_kv_heads, 8, hd)),
+            "v": to_torch(_f32(rng, 2, jcfg.n_kv_heads, 8, hd)), "len": 8}
+    with pytest.raises(ValueError, match="past the end of a cache of 8"):
+        PL.attn_block(pcfg, _tree(p, to_torch), to_torch(x), None, kv_state=full)
+
+    jmodel, pmodel = jax_model(jcfg), get_model(pcfg)
+    init = jmodel.init(jcfg, jax.random.PRNGKey(3))
+    np_tree = jax.tree_util.tree_map(
+        lambda a: np.asarray(a, dtype=np.float32), init)
+    jparams = jax.tree_util.tree_map(jnp.asarray, np_tree)
+    params = from_jax_params(pcfg, np_tree, "cpu")
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 9)).astype(np.int32)
+    prompt, nxt = toks[:, :8], toks[:, 8:]
+
+    _, jcache = jmodel.prefill(jcfg, jparams, {"tokens": jnp.asarray(prompt)})
+    clamped, _ = jmodel.decode_step(jcfg, jparams, jcache, {"tokens": jnp.asarray(nxt)})
+    padded = {**jcache, "k": jnp.pad(jcache["k"], [(0, 0)] * 3 + [(0, 4), (0, 0)]),
+              "v": jnp.pad(jcache["v"], [(0, 0)] * 3 + [(0, 4), (0, 0)])}
+    jd, _ = jmodel.decode_step(jcfg, jparams, padded, {"tokens": jnp.asarray(nxt)})
+    # 0.46 with these weights and tokens
+    assert rel_err(to_torch(np.asarray(clamped)), np.asarray(jd)) > 0.3
+
+    _, cache = pmodel.prefill(pcfg, params, {"tokens": to_torch(prompt)})
+    with pytest.raises(ValueError, match="past the end"):
+        pmodel.decode_step(pcfg, params, cache, {"tokens": to_torch(nxt)})
+    cache = {**cache, "k": torch.nn.functional.pad(cache["k"], (0, 0, 0, 4)),
+             "v": torch.nn.functional.pad(cache["v"], (0, 0, 0, 4))}
+    pd, _ = pmodel.decode_step(pcfg, params, cache, {"tokens": to_torch(nxt)})
+    assert rel_err(pd, np.asarray(jd)) < 2e-4
+
+
 def test_attn_block_cross_kv():
     jcfg, pcfg = _both()
     rng = _rng(10)

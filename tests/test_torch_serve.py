@@ -280,6 +280,46 @@ def test_greedy_generation_gives_the_jax_tokens():
     assert np.array_equal(got.numpy(), want)
 
 
+def test_generate_under_a_window_keeps_the_ring_cache():
+    """A prompt longer than the sliding window leaves a ring cache of the
+    window's length; ``generate`` decodes on it without padding it.  Each
+    decode's logits equal the last position of a prefill of the sequence so
+    far, and the greedy tokens are those of repeated prefills.  The JAX
+    package pads the ring to prompt + gen, after which its decode reads the
+    ring slots as positions 0..window-1: 0.94 relative against its own
+    prefill(S + 1), recorded here as the reference's fault."""
+    W, B, S, G = 16, 2, 24, 4
+    jcfg = jax_smoke("tinyllama-1.1b").replace(window=W)
+    pcfg = get_smoke_config("tinyllama-1.1b").replace(window=W)
+    np_tree = _np_params(jcfg, seed=11)
+    jparams, params = _jnp_tree(np_tree), from_jax_params(pcfg, np_tree, "cpu")
+    prompts = _tokens(jcfg, B, S, seed=12)
+    prefill, decode = make_prefill_step(pcfg), make_decode_step(pcfg)
+
+    got, _, _ = serve.generate(pcfg, params, to_torch(prompts), G)
+    seq, want, full = to_torch(prompts), [], []
+    for _ in range(G):
+        logits, _ = prefill(params, {"tokens": seq})
+        full.append(logits)
+        want.append(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+        seq = torch.cat([seq, want[-1]], dim=1)
+    assert torch.equal(got, torch.cat(want, dim=1))
+
+    _, cache = prefill(params, {"tokens": to_torch(prompts)})
+    cache = serve.pad_cache_to(cache, S + G, pcfg.window)
+    assert cache["k"].shape[3] == W
+    for i in range(G - 1):
+        step, cache = decode(params, cache, {"tokens": got[:, i:i + 1]})
+        assert rel_err(step, full[i + 1]) < TOL, i
+
+    _, jcache = jax_prefill_step(jcfg)(jparams, {"tokens": jnp.asarray(prompts)})
+    jcache = jax_serve.pad_cache_to(jcache, S + G)
+    jstep, _ = jax_decode_step(jcfg)(jparams, jcache, {"tokens": jnp.asarray(got[:, :1].numpy())})
+    jfull, _ = jax_prefill_step(jcfg)(
+        jparams, {"tokens": jnp.asarray(np.concatenate([prompts, got[:, :1].numpy()], 1))})
+    assert rel_err(to_torch(np.asarray(jstep)), np.asarray(jfull)) > 0.5
+
+
 def test_sampling_with_temperature_is_seeded():
     cfg = get_smoke_config("tinyllama-1.1b")
     params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0), "cpu")

@@ -57,7 +57,8 @@ PARAM_TOL = 1e-5
 # a hundred eps
 NEAR_ZERO_GRAD = 100 * AdamWConfig().eps
 
-ARCHS = ["tinyllama-1.1b", "llama3.2-3b"]
+# stablelm-3b brings LayerNorm (scale and bias), partial rotary and MHA
+ARCHS = ["tinyllama-1.1b", "llama3.2-3b", "stablelm-3b"]
 
 
 def _np_params(jcfg, seed):

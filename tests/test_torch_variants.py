@@ -22,18 +22,18 @@ SSM_ARCHS = [a for a in PORTED_ARCHS if get_config(a).family == "ssm"]
 
 @pytest.mark.parametrize("arch", ATTENTION_ARCHS)
 def test_attention_variant_of_every_ported_config(arch):
-    """bf16 at head dims 64 and 128 (tinyllama-1.1b; llama3.2-3b,
-    nemotron-4-15b) runs the wgmma kernel; 80 (stablelm-3b) the mma.sync one;
-    float32 always the fp32-pipe one."""
+    """bf16 at every ported config's head dim (64: tinyllama-1.1b; 80:
+    stablelm-3b; 128: llama3.2-3b, nemotron-4-15b) runs the wgmma kernel
+    forward and backward; float32 always the fp32-pipe one."""
     d = get_config(arch).resolved_head_dim
-    expected = "fa_fwd_wgmma" if d in (64, 128) else "fa_fwd_bf16_mma"
-    assert fa.variant(torch.bfloat16, d) == expected
+    assert fa.variant(torch.bfloat16, d) == "fa_fwd_wgmma"
+    assert fa.variant_bwd(torch.bfloat16, d) == "fa_bwd_wgmma"
     assert fa.variant(torch.float32, d) == "fa_fwd_simt"
 
 
 @pytest.mark.parametrize("d,bf16,f32", [
-    (32, "fa_fwd_bf16_mma", "fa_fwd_simt"), (64, "fa_fwd_wgmma", "fa_fwd_simt"),
-    (80, "fa_fwd_bf16_mma", "fa_fwd_simt"), (128, "fa_fwd_wgmma", "fa_fwd_simt")])
+    (32, "fa_fwd_wgmma", "fa_fwd_simt"), (64, "fa_fwd_wgmma", "fa_fwd_simt"),
+    (80, "fa_fwd_wgmma", "fa_fwd_simt"), (128, "fa_fwd_wgmma", "fa_fwd_simt")])
 def test_attention_variant_by_head_dim(d, bf16, f32):
     assert d in fa.HEAD_DIMS
     assert fa.variant(torch.bfloat16, d) == bf16
@@ -41,17 +41,20 @@ def test_attention_variant_by_head_dim(d, bf16, f32):
 
 
 @pytest.mark.parametrize("d,bf16,f32", [
-    (32, "fa_bwd_bf16_mma", "fa_bwd_simt"), (64, "fa_bwd_wgmma", "fa_bwd_simt"),
-    (80, "fa_bwd_bf16_mma", "fa_bwd_simt"), (128, "fa_bwd_wgmma", "fa_bwd_simt")])
+    (32, "fa_bwd_wgmma", "fa_bwd_simt"), (64, "fa_bwd_wgmma", "fa_bwd_simt"),
+    (80, "fa_bwd_wgmma", "fa_bwd_simt"), (128, "fa_bwd_wgmma", "fa_bwd_simt")])
 def test_attention_backward_variant_by_head_dim(d, bf16, f32):
-    """The backward follows the forward's rule: bf16 at head dims 64 and 128
-    on wgmma + TMA (two CUDA kernels, dQ first), 32 and 80 on mma.sync,
-    float32 on the fp32 pipes."""
+    """The backward follows the forward's rule: bf16 at every head dim on
+    wgmma + TMA (two CUDA kernels, dQ first; at 32 and 80 the last 64-column
+    atom zero-filled past D), float32 on the fp32 pipes.  The mma.sync
+    variant (three CUDA kernels) is never the rule's."""
+    assert d in fa.HEAD_DIMS
     assert fa.variant_bwd(torch.bfloat16, d) == bf16
     assert fa.variant_bwd(torch.float32, d) == f32
-    assert fa.VARIANT_KERNELS_BWD[bf16] == (
-        ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma") if d in fa.WGMMA_HEAD_DIMS
-        else ("fa_bwd_delta", "fa_bwd_dkdv_mma", "fa_bwd_dq_mma"))
+    assert fa.VARIANT_KERNELS_BWD[bf16] == ("fa_bwd_dq_wgmma", "fa_bwd_dkdv_wgmma")
+    assert fa.VARIANT_KERNELS_BWD["fa_bwd_bf16_mma"] == (
+        "fa_bwd_delta", "fa_bwd_dkdv_mma", "fa_bwd_dq_mma")
+    assert "fa_fwd_bf16_mma" not in {fa.variant(t, d) for t in fa.DTYPE_CODES}
 
 
 def test_attention_variant_refuses_what_no_kernel_takes():
@@ -131,10 +134,11 @@ def _offset(shape, dtype, elements=1):
 
 
 @pytest.mark.parametrize("bad", ["base", "rows"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
 def test_attention_wrapper_refuses_what_tma_cannot_take(bad, d):
-    """bf16 at head dims 64 and 128 reaches TMA: a base or a row stride off a
-    16-byte boundary raises, on CPU tensors, before the device check."""
+    """bf16 at every head dim reaches TMA (rows of 64, 128, 160, 256 bytes):
+    a base or a row stride off a 16-byte boundary raises, on CPU tensors,
+    before the device check."""
     def ok(h):
         return torch.zeros((1, h, 16, d), dtype=torch.bfloat16)
     q, k, v = ok(4), ok(2), ok(2)
@@ -147,6 +151,28 @@ def test_attention_wrapper_refuses_what_tma_cannot_take(bad, d):
         fa.flash_attention_fwd(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensors"):   # aligned: next check
         fa.flash_attention_fwd(ok(4), k, v)
+
+
+@pytest.mark.parametrize("name,dtype,d", [
+    ("fa_fwd_wgmma", torch.float32, 80), ("fa_fwd_bf16_mma", torch.float32, 32),
+    ("fa_fwd_simt", torch.bfloat16, 64), ("fa_fwd_none", torch.bfloat16, 128)])
+def test_explicit_forward_variant_that_does_not_take_raises(name, dtype, d):
+    """``variant=`` overrides the forward's rule only with a kernel that takes
+    the dtype and head dim: anything else raises before the device check."""
+    q = torch.zeros((1, 4, 16, d), dtype=dtype)
+    kv = torch.zeros((1, 2, 16, d), dtype=dtype)
+    with pytest.raises(ValueError, match="has no kernel"):
+        fa.flash_attention_fwd(q, kv, kv, variant=name)
+
+
+@pytest.mark.parametrize("name,dtype,d", [
+    ("fa_fwd_wgmma", torch.bfloat16, 32), ("fa_fwd_wgmma", torch.bfloat16, 80),
+    ("fa_fwd_bf16_mma", torch.bfloat16, 80), ("fa_fwd_simt", torch.float32, 80)])
+def test_explicit_forward_variant_that_takes_reaches_the_device_check(name, dtype, d):
+    q = torch.zeros((1, 4, 16, d), dtype=dtype)
+    kv = torch.zeros((1, 2, 16, d), dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.flash_attention_fwd(q, kv, kv, variant=name, return_lse=True)
 
 
 @pytest.mark.parametrize("which", ["x", "B", "C"])
