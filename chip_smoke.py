@@ -5,16 +5,16 @@
 
 Needs one NVIDIA Hopper card, `nvcc` and nothing else; no network.  It builds
 the port's kernels (flash attention forward and backward, the Mamba-2 SSD
-scan) from the sources in this checkout, holds each against its plain
-PyTorch version on the card (naming the CUDA kernels that each call launched,
-as the C functions count them), times the attention forward and backward in
-turns against their earlier variants and PyTorch's fused backends, serves
-tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full width (random weights
-from a seed: batch 8 x prompt 1024, 64 generated tokens) through the port's
-prefill and decode steps, trains tinyllama-1.1b and stablelm-3b at full width
-and depth (batch 8 x 1024, a few AdamW steps through the port's train step),
-holds the kernel paths against the dense paths (fp32, and bf16 for the
-gradients), and checks the results.
+scan forward and backward) from the sources in this checkout, holds each
+against its plain PyTorch version on the card (naming the CUDA kernels that
+each call launched, as the C functions count them), times the attention
+forward and backward in turns against their earlier variants and PyTorch's
+fused backends, serves tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full
+width (random weights from a seed: batch 8 x prompt 1024, 64 generated
+tokens) through the port's prefill and decode steps, trains tinyllama-1.1b,
+stablelm-3b and mamba2-1.3b at full width and depth (batch 8 x 1024, a few
+AdamW steps through the port's train step), holds the kernel paths against
+the dense paths (fp32, and bf16 for the gradients), and checks the results.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device it prints no result and exits with code 1.
@@ -118,6 +118,7 @@ SSD_SHAPES = [
     (1, 700, 4, 64, 1, 128, 256),  # ragged
 ]
 SSD_INIT_STATE = {1, 5}            # cases also run from a random initial state
+# (and, for the backward, with a gradient of the final state)
 
 # K1 at llama3.2-3b's full width (head dim 128, 24 / 8 heads), timed beside the
 # main paths' shapes
@@ -137,7 +138,8 @@ PARITY_TOL = 2e-4     # fp32, kernel path against dense path, 2 layers
 # (80), partial rotary and layer norm tinyllama does not have
 PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
 
-# The training paths: tinyllama-1.1b and stablelm-3b at full width and depth,
+# The training paths: tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full
+# width and depth,
 # bf16, remat "full" (the configs'), batch 8 x sequence 1024, one warm-up step
 # and then TRAIN_STEPS timed AdamW steps, all on the first batch of the synthetic
 # pipeline, so the loss must fall from timed step to timed step, and end
@@ -145,7 +147,7 @@ PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
 # every weight by about lr in its gradient's sign, and raises the loss on
 # both attention paths and with fp32 weights too; larger lrs without warm-up
 # swing wider (scripts/train_lr_sweep.py), so these steps take a small one
-TRAIN_ARCHS = ("tinyllama-1.1b", "stablelm-3b")
+TRAIN_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
 TRAIN_STEPS = 3
 TRAIN_OPT = dict(lr=1e-5, warmup_steps=0)
 # Adam's update lr·m̂/(√v̂ + eps) is ill-conditioned where the gradient (after
@@ -169,7 +171,8 @@ def release() -> None:
 
 def cuda_kernel_counts() -> dict:
     """Launches of every CUDA kernel of the port since its libraries were
-    loaded, as the C functions count them."""
+    loaded, as the C functions count them (the SSD scan's: forward and
+    backward)."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as kssd
     return {**fa.launch_counts(), **kssd.launch_counts()}
@@ -240,6 +243,32 @@ def ssd_bound_ms(x, dt, A, B_, C, chunk, init_state=None):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_bwd_bound_ms(x, dt, A, B_, C, chunk, init_state=None, d_final_state=None):
+    """Least time the card could take for the SSD scan's backward: the larger
+    of bytes moved (x, dt, A, B, C, dy and, where given, init_state and the
+    final state's gradient read once; dx, ddt, dA, dB, dC and, where
+    init_state is given, its gradient written once) over the memory rate and
+    operations over the peak rate for x's type.  Operations are the products
+    the kernel's algebra needs for these inputs, once each: over the pairs
+    j <= i of each chunk, C.B^T once per group and per head dy.u^T, du, dC
+    and dB; per row and head the chunk's two state terms and the terms from
+    the states at the chunk's ends, 2 P N each, five of them."""
+    Bsz, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    states = 0 if init_state is None else 2 * init_state.numel()
+    states += 0 if d_final_state is None else d_final_state.numel()
+    n_bytes = (4 * x.numel() + 2 * (B_.numel() + C.numel())) * x.element_size() \
+        + (2 * dt.numel() + 2 * A.numel() + states) * 4
+    rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    pairs = sum(q * (q + 1) // 2 for q in rows)
+    flops = 2 * Bsz * (G * N * pairs + H * pairs * (2 * P + 2 * N)
+                       + 5 * H * P * N * S)
+    peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def launched_variant(fn, module, expected: str, variants=None):
     """Run `fn` (one call of a kernel's op) once; the CUDA kernels that the C
     function counted as launched in that call (`module.launch_counts()` read
@@ -295,13 +324,13 @@ def phase_build(verbose: bool) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    sources = (fa.SOURCE, fa.SOURCE_BWD, ssd.SOURCE)
+    sources = (fa.SOURCE, fa.SOURCE_BWD, ssd.SOURCE, ssd.SOURCE_BWD)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = list(pool.map(lambda src: _build.build(src, verbose), sources))
-    fa.load(), fa.load_bwd(), ssd.load()
+    fa.load(), fa.load_bwd(), ssd.load(), ssd.load_bwd()
     emit("build", kernels=["flash_attention_fwd", "flash_attention_bwd",
-                           "ssd_scan_fwd"],
+                           "ssd_scan_fwd", "ssd_scan_bwd"],
          sources=[str(src.relative_to(ROOT)) for src in sources],
          libraries=[str(lib.relative_to(ROOT)) for lib in libs],
          seconds=round(time.perf_counter() - t0, 3))
@@ -670,6 +699,21 @@ def phase_attention_bwd() -> dict:
     return main, d80
 
 
+def ssd_inputs(gen, B, S, H, P, G, N, dtype, with_init=False):
+    """x, dt, A, B, C of the SSD scan on the card, with the distributions of
+    the JAX package's kernel tests, and a random initial state or None."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x = randn(B, S, H, P, scale=0.5).to(dtype)
+    dt = F.softplus(randn(B, S, H))
+    A = -torch.exp(randn(H, scale=0.3))
+    B_ = randn(B, S, G, N, scale=0.3).to(dtype)
+    C = randn(B, S, G, N, scale=0.3).to(dtype)
+    h0 = randn(B, H, P, N) if with_init else None
+    return (x, dt, A, B_, C), h0
+
+
 def phase_ssd_kernels() -> dict:
     from repro_torch.kernels.ssd_scan import kernel as kssd
     from repro_torch.kernels.ssd_scan.ops import ssd
@@ -678,24 +722,14 @@ def phase_ssd_kernels() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device="cuda") * scale
-
-    def make(B, S, H, P, G, N, dtype, with_init=False):
-        """The distributions of the JAX package's kernel tests."""
-        x = randn(B, S, H, P, scale=0.5).to(dtype)
-        dt = F.softplus(randn(B, S, H))
-        A = -torch.exp(randn(H, scale=0.3))
-        B_ = randn(B, S, G, N, scale=0.3).to(dtype)
-        C = randn(B, S, G, N, scale=0.3).to(dtype)
-        h0 = randn(B, H, P, N) if with_init else None
-        return (x, dt, A, B_, C), h0
+    def make(*shape, with_init=False):
+        return ssd_inputs(gen, *shape, with_init)
 
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for idx, (B, S, H, P, G, N, chunk) in enumerate(SSD_SHAPES):
             for with_init in sorted({False, idx in SSD_INIT_STATE}):
-                args, h0 = make(B, S, H, P, G, N, dtype, with_init)
+                args, h0 = make(B, S, H, P, G, N, dtype, with_init=with_init)
                 (y, hT), ran, _ = launched_variant(
                     lambda: ssd(*args, chunk=chunk, init_state=h0,
                                 return_state=True),
@@ -744,6 +778,86 @@ def phase_ssd_kernels() -> dict:
     return main
 
 
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "d_init_state")
+
+
+def phase_ssd_bwd_kernels() -> dict:
+    """K2b: the backward kernel against its plain version over the forward's
+    sweep in both types (every gradient; an initial state and a final-state
+    gradient where SSD_INIT_STATE says), two calls bitwise equal, the CUDA
+    kernels of variant_bwd's variant; then timed at mamba2-1.3b's training
+    shape beside its bound and its plain version's time."""
+    from repro_torch.kernels.ssd_scan import kernel as kssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
+    from repro_torch.testing import rel_err
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def inputs(B, S, H, P, G, N, dtype, with_init):
+        args, h0 = ssd_inputs(gen, B, S, H, P, G, N, dtype, with_init)
+        dy = torch.randn((B, S, H, P), generator=gen, device="cuda").to(dtype)
+        d_final = (torch.randn((B, H, P, N), generator=gen, device="cuda")
+                   if with_init else None)
+        return args, h0, dy, d_final
+
+    def check(shape, chunk, dtype, with_init):
+        """One case: errors against the plain version, the variant whose
+        CUDA kernels ran, and two calls' equality.  Returns the case, the
+        inputs x, dt, A, B, C, the kernel's and the plain version's calls,
+        both results and the CUDA kernels one call launched."""
+        B, S, H, P, G, N = shape
+        args, h0, dy, d_final = inputs(B, S, H, P, G, N, dtype, with_init)
+        bwd = lambda: kssd.ssd_scan_bwd(  # noqa: E731
+            *args, dy, chunk=chunk, init_state=h0, d_final_state=d_final)
+        plain = lambda: ssd_chunked_bwd_ref(  # noqa: E731
+            *args, h0, dy, d_final, chunk=chunk)
+        grads, ran, n_kernels = launched_variant(
+            bwd, kssd, kssd.variant_bwd(dtype, P, N, chunk), kssd.VARIANT_KERNELS_BWD)
+        again = bwd()
+        ref = plain()
+        errs = {name: rel_err(g, r) for name, g, r in zip(SSD_GRADS, grads, ref)}
+        if h0 is None:       # the gradient of a zero state nobody passed
+            errs.pop("d_init_state")
+        case = {"shape": list(shape), "chunk": chunk,
+                "dtype": str(dtype).split(".")[1], "variant": ran,
+                "init_state_and_final_grad": with_init,
+                **{f"{k}_rel_err": v for k, v in errs.items()},
+                "tol": BWD_TOL[dtype],
+                "equal_run_to_run": all(torch.equal(a, b) for a, b in zip(grads, again))}
+        if not (max(errs.values()) < BWD_TOL[dtype] and case["equal_run_to_run"]
+                and all(bool(torch.isfinite(g).all()) for g in grads)):
+            raise AssertionError(f"ssd_scan_bwd disagrees: {case}")
+        return case, args, bwd, plain, grads, ref, n_kernels
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for idx, (B, S, H, P, G, N, chunk) in enumerate(SSD_SHAPES):
+            for with_init in sorted({False, idx in SSD_INIT_STATE}):
+                cases.append(check((B, S, H, P, G, N), chunk, dtype, with_init)[0])
+
+    # the training shape: one mamba2-1.3b layer's scan at batch 8 x 1024,
+    # bf16, chunk 256, no initial state and no final-state gradient
+    shape, chunk = (BATCH, PROMPT_LEN, 64, 64, 1, 128), 256
+    case, args, bwd, plain, grads, ref, n_kernels = check(
+        shape, chunk, torch.bfloat16, False)
+    abs_err = max(float((g.float() - r.float()).abs().max())
+                  for g, r in zip(grads[:5], ref[:5]))
+    ms, order = in_turns([("kernel", bwd), ("plain", plain)], 5)
+    bound_ms, bound_by = ssd_bwd_bound_ms(*args, chunk)
+    main = {**case, "cuda_kernels_per_call": n_kernels, "max_abs_err": abs_err,
+            "kernel_ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
+            "ms_in_turns": order, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "cuda_kernels": device_split(bwd, 3)}
+    emit("kernels", name="ssd_scan_bwd", sweep=cases,
+         max_rel_err_fp32=max(max(v for k, v in c.items() if k.endswith("_rel_err"))
+                              for c in cases if c["dtype"] == "float32"),
+         max_rel_err_bf16=max(max(v for k, v in c.items() if k.endswith("_rel_err"))
+                              for c in cases if c["dtype"] == "bfloat16"),
+         main_path_shape=main)
+    return main
+
+
 def phase_serve(arch: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -767,12 +881,13 @@ def phase_serve(arch: str) -> dict:
     # arch's own kernel runs once per layer in the prefill, the other never;
     # the CUDA kernels of the variant that the rule names, once each a call
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention.bwd_launches = ssd.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    ssd.launches = ssd.bwd_launches = 0
     before = cuda_kernel_counts()
     tokens, t_prefill, t_decode = generate(cfg, params, prompts, GEN)
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches,
-              "ssd_scan_fwd": ssd.launches}
+              "ssd_scan_fwd": ssd.launches, "ssd_scan_bwd": ssd.bwd_launches}
     cuda_kernels = cuda_kernels_since(before)
     peak = torch.cuda.max_memory_allocated()
     if cfg.family == "ssm":
@@ -861,12 +976,15 @@ def _train_batch(cfg) -> dict:
 def phase_train(arch: str) -> dict:
     """`arch` trains at full width and depth: a warm-up step, then
     TRAIN_STEPS timed steps of the port's train step, with every kernel's
-    count set to 0 just before them: K1 twice a layer a step (the forward,
-    and again under the full remat's recompute), K1b once, K2 never; each
-    through the CUDA kernels of the variant that the rule names."""
+    count set to 0 just before them.  Each layer's own forward kernel runs
+    twice a layer a step (the forward, and again under the full remat's
+    recompute) and its backward once, the other family's never: K1 and K1b
+    for a dense arch, K2 and K2b for Mamba-2; each through the CUDA kernels
+    of the variant that the rule names."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan import kernel as kssd
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.common import get_model, param_count, tree_leaves
@@ -887,7 +1005,8 @@ def phase_train(arch: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention.bwd_launches = ssd.launches = 0
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    ssd.launches = ssd.bwd_launches = 0
     fa.flash_attention_bwd.copies = 0
     before = cuda_kernel_counts()
     times = []
@@ -898,20 +1017,27 @@ def phase_train(arch: str) -> dict:
         times.append(time.perf_counter() - t0)
     counts = {"flash_attention_fwd": flash_attention.launches,
               "flash_attention_bwd": flash_attention.bwd_launches,
-              "ssd_scan_fwd": ssd.launches}
+              "ssd_scan_fwd": ssd.launches, "ssd_scan_bwd": ssd.bwd_launches}
     cuda_kernels = cuda_kernels_since(before)
     bwd_copies = fa.flash_attention_bwd.copies
     peak = torch.cuda.max_memory_allocated()
-    expected = {"flash_attention_fwd": 2 * cfg.num_layers * TRAIN_STEPS,
-                "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS,
-                "ssd_scan_fwd": 0}
-    # K1 and K1b through the CUDA kernels of the rule's variants (the
-    # backward's wgmma variant: two, once each a call)
-    hd = cfg.resolved_head_dim
-    want = {k: expected["flash_attention_fwd"]
-            for k in fa.VARIANT_KERNELS[fa.variant(cfg.compute_dtype, hd)]}
-    want.update({k: expected["flash_attention_bwd"] for k in
-                 fa.VARIANT_KERNELS_BWD[fa.variant_bwd(cfg.compute_dtype, hd)]})
+    fwd_n, bwd_n = 2 * cfg.num_layers * TRAIN_STEPS, cfg.num_layers * TRAIN_STEPS
+    if cfg.family == "ssm":
+        own = ("ssd_scan_fwd", "ssd_scan_bwd")
+        shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
+        fwd_kernels = kssd.VARIANT_KERNELS[kssd.variant(cfg.compute_dtype, *shape)]
+        bwd_kernels = kssd.VARIANT_KERNELS_BWD[kssd.variant_bwd(cfg.compute_dtype, *shape)]
+    else:
+        own = ("flash_attention_fwd", "flash_attention_bwd")
+        hd = cfg.resolved_head_dim
+        fwd_kernels = fa.VARIANT_KERNELS[fa.variant(cfg.compute_dtype, hd)]
+        bwd_kernels = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(cfg.compute_dtype, hd)]
+    expected = {k: 0 for k in counts}
+    expected.update({own[0]: fwd_n, own[1]: bwd_n})
+    # the CUDA kernels of the rule's variants (K1b's and K2's wgmma variants:
+    # two a call; K2b's: five), once each a call
+    want = {k: fwd_n for k in fwd_kernels}
+    want.update({k: bwd_n for k in bwd_kernels})
     if counts != expected or cuda_kernels != want:
         raise AssertionError(f"kernel launches {counts} ({cuda_kernels}) in "
                              f"{TRAIN_STEPS} train steps of {cfg.num_layers} "
@@ -923,8 +1049,8 @@ def phase_train(arch: str) -> dict:
                              f"and falling: {losses}")
     n_params = param_count(params)
     ms = sum(times) / len(times) * 1e3
-    result = {"arch": arch, "params": n_params, "dtype": "bfloat16",
-              "remat": cfg.remat, "batch": BATCH, "seq": PROMPT_LEN,
+    result = {"arch": arch, "family": cfg.family, "params": n_params,
+              "dtype": "bfloat16", "remat": cfg.remat, "batch": BATCH, "seq": PROMPT_LEN,
               "steps_timed": TRAIN_STEPS, "warmup_step_s": warmup_s,
               "ms_per_step": ms, "ms_per_step_each": [t * 1e3 for t in times],
               "tokens_per_s": BATCH * PROMPT_LEN / (ms / 1e3),
@@ -941,10 +1067,12 @@ def phase_train(arch: str) -> dict:
 def phase_train_parity_bf16(arch: str) -> None:
     """The gradients of `arch` at full width, 2 layers, in bf16 (the config's
     types), kernel path against dense path: the path the fp32 run cannot
-    reach, K1b's wgmma variant.  Each gradient leaf within BF16_GRAD_TOL,
-    relative to its dense max."""
+    reach (K1b's wgmma variant; K2's wgmma forward under K2b).  Each gradient
+    leaf within BF16_GRAD_TOL, relative to its dense max; the backward's
+    CUDA kernels once a layer."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as kssd
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.common import get_model
     from repro_torch.testing import rel_err
@@ -956,10 +1084,19 @@ def phase_train_parity_bf16(arch: str) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = get_model(cfg).init(cfg, gen, "cuda")
     batch = _train_batch(cfg)
-    before = fa.launch_counts()
+    if cfg.family == "ssm":
+        module = kssd
+        expected = kssd.VARIANT_KERNELS_BWD[kssd.variant_bwd(
+            torch.bfloat16, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)]
+    else:
+        module = fa
+        expected = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(torch.bfloat16,
+                                                         cfg.resolved_head_dim)]
+    before = module.launch_counts()
     loss_k, grads_k = loss_and_grads(cfg, params, batch)
     torch.cuda.synchronize()
-    ran = {k: n - before[k] for k, n in fa.launch_counts().items() if n != before[k]}
+    ran = {k: n - before[k] for k, n in module.launch_counts().items()
+           if n != before[k]}
     loss_d, grads_d = loss_and_grads(dense, params, batch)
     grad_errs = [rel_err(a, b) for a, b in zip(grads_k, grads_d)]
     loss_err = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
@@ -969,8 +1106,6 @@ def phase_train_parity_bf16(arch: str) -> None:
               "leaves": len(grad_errs), "cuda_kernels": ran,
               "tol": BF16_GRAD_TOL}
     emit("train_parity_on_card", **result)
-    expected = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(torch.bfloat16,
-                                                     cfg.resolved_head_dim)]
     if not (max(grad_errs) < BF16_GRAD_TOL and loss_err < BF16_GRAD_TOL
             and all(ran.get(k) == cfg.num_layers for k in expected)):
         raise AssertionError(f"bf16 training: kernel path and dense path "
@@ -1045,6 +1180,7 @@ def main() -> int:
     phase_build(verbose="--verbose-build" in sys.argv[1:])
     k1, k1_d80 = phase_kernels()
     k2 = phase_ssd_kernels()
+    k2b = phase_ssd_bwd_kernels()
     serves = {}
     for arch in SERVE_ARCHS:
         release()
@@ -1064,36 +1200,37 @@ def main() -> int:
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    # one row per TPU kernel, and one for the attention backward (the JAX
-    # package's blocked jnp backward, a hand-written kernel here); `launches`
-    # counts calls of the op on the main path; `variant` and
-    # `cuda_kernels_per_call` are what the C function counted one call launch
-    # at the main path's shape (the SSD scan's wgmma variant: the state pass,
-    # then the outputs; the backward's: dQ with delta, then dK/dV); K1 and
-    # K1b also at stablelm-3b's head dim 80, with the launches of its paths
-    main_train = trained[TRAIN_ARCHS[0]]["launches_by_kernel"]
+    # one row per TPU kernel, and one for each backward (the JAX package's
+    # blocked jnp attention backward, and jax.grad through its chunked scan:
+    # hand-written kernels here); `launches` counts calls of the op on the
+    # main path (the forwards': in one prefill; the backwards': in the timed
+    # train steps); `variant` and `cuda_kernels_per_call` are what the C
+    # function counted one call launch at the main path's shape (the SSD
+    # scan's wgmma variant: the state pass, then the outputs; the attention
+    # backward's: dQ with delta, then dK/dV; the scan's backward: five
+    # passes); K1 and K1b also at stablelm-3b's head dim 80, with the
+    # launches of its paths
     at_d80 = {"flash_attention_fwd": (k1_d80, serves["stablelm-3b"]["kernel_launches"]),
               "flash_attention_bwd": (k1b_d80, trained["stablelm-3b"]
                                       ["launches_by_kernel"]["flash_attention_bwd"])}
     rows = []
-    for name, module, replaces, numbers, arch in (
-            ("flash_attention_fwd", fa,
+    for name, source, replaces, numbers, launches in (
+            ("flash_attention_fwd", fa.SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:32", k1,
-             "tinyllama-1.1b"),
-            ("ssd_scan_fwd", ssd, "src/repro/kernels/ssd_scan/kernel.py:27",
-             k2, "mamba2-1.3b"),
-            ("flash_attention_bwd", fa, "src/repro/models/flash.py:197", k1b,
-             None)):
+             serves["tinyllama-1.1b"]["kernel_launches"]),
+            ("ssd_scan_fwd", ssd.SOURCE, "src/repro/kernels/ssd_scan/kernel.py:27",
+             k2, serves["mamba2-1.3b"]["kernel_launches"]),
+            ("flash_attention_bwd", fa.SOURCE_BWD, "src/repro/models/flash.py:197",
+             k1b, trained["tinyllama-1.1b"]["launches_by_kernel"][
+                 "flash_attention_bwd"]),
+            ("ssd_scan_bwd", ssd.SOURCE_BWD, "src/repro/models/mamba2.py:42",
+             k2b, trained["mamba2-1.3b"]["launches_by_kernel"]["ssd_scan_bwd"])):
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": str((fa.SOURCE_BWD if arch is None else module.SOURCE)
-                          .relative_to(ROOT)),
+            "source": str(source.relative_to(ROOT)),
             "replaces": replaces,
-            # the serving kernels' launches in one prefill; the backward's in
-            # the timed train steps
-            "launches": (main_train[name] if arch is None
-                         else serves[arch]["kernel_launches"]),
+            "launches": launches,
             "max_abs_err": numbers["max_abs_err"],
             "ms": numbers["kernel_ms"],
             "plain_ms": numbers["plain_ms"],

@@ -7,9 +7,10 @@
 Needs one CUDA card.  Serves the full-width model (tinyllama-1.1b unless
 ``--arch`` names another ported arch; random weights from a seed, batch 8 x
 prompt 1024) and traces one prefill and a window of decode steps with
-torch.profiler; with ``--train`` it instead trains the dense arch (bf16, the
-config's remat, AdamW) on batch 8 x sequence 1024 and traces one train step
-after a warm-up step.  Prints one JSON line per phase: the wall time, the time
+torch.profiler; with ``--train`` it instead trains the arch (dense or
+Mamba-2; bf16, the config's remat, AdamW) on batch 8 x sequence 1024 and
+traces one train step after a warm-up step, and prints the step's peak device
+memory.  Prints one JSON line per phase: the wall time, the time
 the device was busy, its idle share, the number of kernels, and the kernels
 that took most of the device time.
 """
@@ -102,8 +103,10 @@ def profile_train(cfg, device, smi: str) -> None:
     print(json.dumps({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
                       "arch": cfg.arch, "layers": cfg.num_layers, "batch": BATCH,
                       "seq": PROMPT_LEN, "remat": cfg.remat}), flush=True)
+    torch.cuda.reset_peak_memory_stats()
     wall, kernels = traced(run_step)
-    summarize("train_step", wall, kernels, top=14, loss=state["loss"])
+    summarize("train_step", wall, kernels, top=14, loss=state["loss"],
+              peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
 def main() -> None:

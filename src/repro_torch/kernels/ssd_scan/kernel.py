@@ -1,12 +1,13 @@
-"""Load and launch the CUDA SSD-scan forward.
+"""Load and launch the CUDA SSD-scan forward (K2) and backward (K2b).
 
-The source ``csrc/ssd_fwd.cu`` is compiled at first use by
-``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded with
-``ctypes``).  Which kernels run is fixed by (dtype, P, N, chunk) alone
-(``variant``, which the wrapper passes to the C function): bf16 at the serving
-shape (P 64, N 128, chunk 64 and up) runs two wgmma + TMA kernels one after
-the other (the state pass, then the outputs), everything else one kernel on
-the fp32 pipes.
+The sources ``csrc/ssd_fwd.cu`` and ``csrc/ssd_bwd.cu`` are compiled at first
+use by ``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded with
+``ctypes``), one library each.  Which kernels run is fixed by (dtype, P, N,
+chunk) alone (``variant`` and ``variant_bwd``, which the wrappers pass to the
+C functions): in the forward, bf16 at the serving shape (P 64, N 128, chunk
+64 and up) runs two wgmma + TMA kernels one after the other (the state pass,
+then the outputs), everything else one kernel on the fp32 pipes; the
+backward runs five kernels on the fp32 pipes for every input it takes.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
+SOURCE_BWD = SOURCE.with_name("ssd_bwd.cu")
 # The sizes the kernel was built for: the chunks of the tests, the JAX
 # kernel's default (128) and ModelConfig.ssm_chunk (256); head dims P and
 # state sizes N are multiples of 4 up to 64 and 128 (shared-memory tiles).
@@ -31,13 +33,20 @@ VARIANT_CODES = {"ssd_fwd_kernel": 0, "ssd_wgmma": 1}
 # the CUDA kernels one call launches, by variant
 VARIANT_KERNELS = {"ssd_wgmma": ("ssd_state_wgmma", "ssd_out_wgmma"),
                    "ssd_fwd_kernel": ("ssd_fwd_kernel",)}
+# the backward's variants (SsdBwdVariant in ssd_bwd.cu) and their kernels
+VARIANT_CODES_BWD = {"ssd_bwd_simt": 0}
+VARIANT_KERNELS_BWD = {"ssd_bwd_simt": (
+    "ssd_bwd_chunk_state", "ssd_bwd_state_scan", "ssd_bwd_chunk_grads",
+    "ssd_bwd_dt", "ssd_bwd_reduce")}
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_bwd: Optional[ctypes.CDLL] = None
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel if its library is not there yet; return its path."""
-    return _build.build(SOURCE, verbose)
+def build(verbose: bool = False) -> Tuple[Path, Path]:
+    """Compile the forward's and the backward's libraries where they are not
+    there yet; return their paths."""
+    return _build.build(SOURCE, verbose), _build.build(SOURCE_BWD, verbose)
 
 
 def load() -> ctypes.CDLL:
@@ -54,11 +63,28 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def load_bwd() -> ctypes.CDLL:
+    """The loaded backward library, built first if need be."""
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = _build.load(SOURCE_BWD)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ssd_bwd.argtypes = [ptr] * 15 + [i32] * 9 + [ptr]
+        lib.ssd_bwd.restype = i32
+        lib.ssd_bwd_scratch_floats.argtypes = [i32] * 7
+        lib.ssd_bwd_scratch_floats.restype = ctypes.c_longlong
+        lib.ssd_bwd_error_string.argtypes = [i32]
+        lib.ssd_bwd_error_string.restype = ctypes.c_char_p
+        _lib_bwd = lib
+    return _lib_bwd
+
+
 def launch_counts() -> Dict[str, int]:
-    """Launches of each CUDA kernel of the library since it was loaded, as
-    the C function counts them where a launch succeeds: which kernels a call
-    really ran is the difference of two readings."""
-    return _build.launch_counts(load(), "ssd")
+    """Launches of each CUDA kernel of both libraries since they were loaded,
+    as the C functions count them where a launch succeeds: which kernels a
+    call really ran is the difference of two readings."""
+    return {**_build.launch_counts(load(), "ssd"),
+            **_build.launch_counts(load_bwd(), "ssd_bwd")}
 
 
 def takes(head_dim: int, state: int, chunk: int) -> bool:
@@ -80,18 +106,19 @@ def variant(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
     return "ssd_fwd_kernel"
 
 
-def ssd_scan_fwd(
-    x: torch.Tensor,            # [B, S, H, P]  fp32 or bf16
-    dt: torch.Tensor,           # [B, S, H]     fp32
-    A: torch.Tensor,            # [H]           fp32
-    B_: torch.Tensor,           # [B, S, G, N]  the type of x
-    C: torch.Tensor,            # [B, S, G, N]  the type of x
-    *,
-    chunk: int,
-    init_state: Optional[torch.Tensor] = None,   # [B, H, P, N] fp32
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel on CUDA tensors: (y [B,S,H,P] in x's type, final
-    state [B,H,P,N] fp32).  Raises on anything it does not take."""
+def variant_bwd(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
+    """The backward that runs for this dtype and (P, N, chunk):
+    ``ssd_bwd_simt``, five kernels on the fp32 pipes, for every input the
+    forward takes."""
+    if dtype not in DTYPE_CODES or not takes(head_dim, state, chunk):
+        raise ValueError(f"no kernel for {dtype} at (P={head_dim}, N={state}, "
+                         f"chunk={chunk})")
+    return "ssd_bwd_simt"
+
+
+def _check(x, dt, A, B_, C, init_state, chunk) -> Tuple[int, ...]:
+    """(B, S, H, P, G, N) of the scan's inputs; raises on anything the
+    kernels do not take, the device last."""
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or B_.ndim != 4 or C.ndim != 4:
         raise ValueError("expected x [B,S,H,P], dt [B,S,H], A [H], "
                          "B and C [B,S,G,N]")
@@ -127,6 +154,22 @@ def ssd_scan_fwd(
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("x, dt, A, B, C and init_state must be contiguous")
+    return Bsz, S, H, P, G, N
+
+
+def ssd_scan_fwd(
+    x: torch.Tensor,            # [B, S, H, P]  fp32 or bf16
+    dt: torch.Tensor,           # [B, S, H]     fp32
+    A: torch.Tensor,            # [H]           fp32
+    B_: torch.Tensor,           # [B, S, G, N]  the type of x
+    C: torch.Tensor,            # [B, S, G, N]  the type of x
+    *,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,   # [B, H, P, N] fp32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors: (y [B,S,H,P] in x's type, final
+    state [B,H,P,N] fp32).  Raises on anything it does not take."""
+    Bsz, S, H, P, G, N = _check(x, dt, A, B_, C, init_state, chunk)
     kind = variant(x.dtype, P, N, chunk)
     if kind == "ssd_wgmma" and any(t.data_ptr() % 16 for t in (x, B_, C)):
         # TMA takes only 16-byte aligned bases (the rows of x, B and C are
@@ -157,3 +200,60 @@ def ssd_scan_fwd(
         raise RuntimeError(f"ssd_fwd launch failed: CUDA error {err} "
                            f"({lib.ssd_error_string(err).decode()})")
     return y, state
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,            # [B, S, H, P]  fp32 or bf16
+    dt: torch.Tensor,           # [B, S, H]     fp32
+    A: torch.Tensor,            # [H]           fp32
+    B_: torch.Tensor,           # [B, S, G, N]  the type of x
+    C: torch.Tensor,            # [B, S, G, N]  the type of x
+    dy: torch.Tensor,           # [B, S, H, P]  the type of x: the gradient of y
+    *,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,      # [B, H, P, N] fp32
+    d_final_state: Optional[torch.Tensor] = None,   # [B, H, P, N] fp32
+) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward on CUDA tensors: (dx, ddt, dA, dB, dC,
+    d_init_state), dx, dB and dC in x's type, the rest fp32;
+    ``d_init_state`` is the gradient of the initial state (of a zero one
+    when ``init_state`` is None).  Raises on anything it does not take."""
+    Bsz, S, H, P, G, N = _check(x, dt, A, B_, C, init_state, chunk)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must have x's shape "
+                         "and dtype")
+    if d_final_state is not None and (
+            d_final_state.shape != (Bsz, H, P, N)
+            or d_final_state.dtype != torch.float32):
+        raise ValueError(f"d_final_state must be {(Bsz, H, P, N)} float32, got "
+                         f"{tuple(d_final_state.shape)} {d_final_state.dtype}")
+    extra = [dy] + ([] if d_final_state is None else [d_final_state])
+    if any(t.device != x.device for t in extra):
+        raise ValueError("all tensors must be on one device")
+    if not all(t.is_contiguous() for t in extra):
+        raise ValueError("dy and d_final_state must be contiguous")
+    kind = variant_bwd(x.dtype, P, N, chunk)
+    if not x.is_cuda:
+        raise ValueError(f"tensors must be CUDA tensors, got {x.device}")
+    lib = load_bwd()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dB, dC = torch.empty_like(x), torch.empty_like(B_), torch.empty_like(C)
+    ddt, dA = torch.empty((Bsz, S, H), **f32), torch.empty((H,), **f32)
+    d_init = torch.empty((Bsz, H, P, N), **f32)
+    scratch = torch.empty(
+        (lib.ssd_bwd_scratch_floats(Bsz, S, H, G, P, N, chunk),), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+            C.data_ptr(), None if init_state is None else init_state.data_ptr(),
+            dy.data_ptr(),
+            None if d_final_state is None else d_final_state.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), d_init.data_ptr(), scratch.data_ptr(),
+            Bsz, S, H, G, P, N, chunk, DTYPE_CODES[x.dtype],
+            VARIANT_CODES_BWD[kind], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_bwd launch failed: CUDA error {err} "
+                           f"({lib.ssd_bwd_error_string(err).decode()})")
+    return dx, ddt, dA, dB, dC, d_init

@@ -121,3 +121,143 @@ def ssd_chunked_ref(
                            Ch, h_before, torch.exp(dA_cum))
     y = (y_intra + y_inter).reshape(Bsz, nc * chunk, H, P)[:, :S]
     return y.to(x.dtype), h
+
+
+def ssd_chunked_bwd_ref(
+    x: torch.Tensor,                    # [B, S, H, P]
+    dt: torch.Tensor,                   # [B, S, H]
+    A: torch.Tensor,                    # [H]
+    B_: torch.Tensor,                   # [B, S, G, N]
+    C: torch.Tensor,                    # [B, S, G, N]
+    init_state: Optional[torch.Tensor],           # [B, H, P, N] or None
+    dy: torch.Tensor,                   # [B, S, H, P], the gradient of y
+    d_final_state: Optional[torch.Tensor],        # [B, H, P, N] or None (0)
+    *,
+    chunk: int,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_chunked_ref``: (dx, ddt, dA, dB, dC,
+    d_init_state), fp32 inside (float64 for float64 inputs, to measure the
+    fp32 version against); dx, dB and dC in the inputs' types, the rest in
+    the inside type.  ``d_init_state`` is the gradient of the initial state
+    (of a zero one when ``init_state`` is None).
+
+    Written out pass by pass in the order the backward kernel computes it,
+    for one chunk c of Q rows, u_j = dt_j x_j, cum the in-order cumsum of
+    dt A, h_c the state before the chunk and dh_{c+1} the gradient of the
+    state after it, L_ij = exp(cum_i - cum_j) for i >= j (0 above):
+
+    1. the chunk's terms of the two recurrences: sum_j exp(cum_last - cum_j)
+       u_j (x) B_j and sum_i exp(cum_i) dy_i (x) C_i;
+    2. the forward recurrence h_c, then the reverse one
+       dh_c = exp(cum_last) dh_{c+1} + sum_i exp(cum_i) dy_i (x) C_i, from
+       ``d_final_state`` down to ``d_init_state``;
+    3. per chunk, with M = L o (C B^T) and G = L o (dy u^T):
+       du = M^T dy + exp(cum_last - cum_j) B dh^T, dC = G B + exp(cum_i) dy h,
+       dB = G^T C + exp(cum_last - cum_j) u dh, and the gradient of each
+       cum that a term reads;
+    4. ddA = the reverse in-chunk cumsum of dcum: ddt = x . du + A ddA,
+       dA = sum dt ddA;
+    5. dB and dC summed over each group's heads.
+
+    A ragged last chunk is padded with dt = 0 rows, as the forward pads, and
+    the padded rows' gradients are dropped."""
+    Bsz, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    rep = H // G
+    pad = (-S) % chunk
+    if pad:
+        x, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (B_, C))
+    nc = x.shape[1] // chunk
+    Q = chunk
+
+    f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xc = x.reshape(Bsz, nc, Q, H, P).to(f32)
+    dyc = dy.reshape(Bsz, nc, Q, H, P).to(f32)
+    dtc = dt.reshape(Bsz, nc, Q, H).to(f32)
+    Bc = B_.reshape(Bsz, nc, Q, G, N).to(f32)
+    Cc = C.reshape(Bsz, nc, Q, G, N).to(f32)
+    Bh = torch.repeat_interleave(Bc, rep, dim=3)                # [B,nc,Q,H,N]
+    Ch = torch.repeat_interleave(Cc, rep, dim=3)
+    Af = A.to(f32)
+
+    cum = torch.cumsum(dtc * Af[None, None, None, :], dim=2)    # [B,nc,Q,H]
+    cum_last = cum[:, :, -1]                                    # [B,nc,H]
+    u = xc * dtc[..., None]                                     # [B,nc,Q,H,P]
+    to_end = torch.exp(cum_last[:, :, None, :] - cum)           # [B,nc,Q,H]
+    from_start = torch.exp(cum)
+
+    # 1. the chunk's terms of the forward and the reverse recurrence
+    states = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", Bh, u, to_end)
+    d_local = torch.einsum("bcqhn,bcqhp,bcqh->bchpn", Ch, dyc, from_start)
+
+    # 2. h_c in fp32 (recomputed: the forward keeps no fp32 copy), then dh
+    #    from the last chunk down, with exp(cum_last) <h_c, dh_{c+1}>
+    h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    h_before = []
+    for c in range(nc):
+        h_before.append(h)
+        h = h * torch.exp(cum_last[:, c])[:, :, None, None] + states[:, c]
+    dh = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+          if d_final_state is None else d_final_state.to(f32))
+    dh_after, h_dh = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        dh_after[c] = dh
+        decay = torch.exp(cum_last[:, c])                       # [B,H]
+        h_dh[c] = decay * (h_before[c] * dh).sum((-2, -1))
+        dh = dh * decay[:, :, None, None] + d_local[:, c]
+    d_init = dh
+    h_before = torch.stack(h_before, dim=1)                     # [B,nc,H,P,N]
+    dh_after = torch.stack(dh_after, dim=1)
+    h_dh = torch.stack(h_dh, dim=1)                             # [B,nc,H]
+
+    # 3. the chunk gradients, within the chunk (i rows, j columns) and from
+    #    the states at its two ends
+    Lmat = torch.exp(_segsum(cum.permute(0, 1, 3, 2)))          # [B,nc,H,Q,Q]
+    CB = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)
+    CB = torch.repeat_interleave(CB, rep, dim=2)                # [B,nc,H,Q,Q]
+    YU = torch.einsum("bcihp,bcjhp->bchij", dyc, u)
+    M = Lmat * CB
+    Gm = Lmat * YU
+    dS = M * YU
+    du_inter = to_end[..., None] * torch.einsum("bcjhn,bchpn->bcjhp", Bh, dh_after)
+    du = torch.einsum("bchij,bcihp->bcjhp", M, dyc) + du_inter
+    dC_inter = from_start[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, h_before)
+    dC = torch.einsum("bchij,bcjhn->bcihn", Gm, Bh) + dC_inter
+    dB = (torch.einsum("bchij,bcihn->bcjhn", Gm, Ch)
+          + to_end[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", u, dh_after))
+    # the decays: dS_ij moves cum_i up and cum_j down; dy_i . y_inter_i is
+    # C_i . dC_inter_i; s_j = exp(cum_last - cum_j) <u_j (x) B_j, dh_{c+1}>
+    # moves cum_j down and cum_last up, as does exp(cum_last) <h_c, dh_{c+1}>
+    s = (u * du_inter).sum(-1)                                  # [B,nc,Q,H]
+    dcum = (dS.sum(-1) - dS.sum(-2)).permute(0, 1, 3, 2) \
+        + (Ch * dC_inter).sum(-1) - s
+    dcum[:, :, -1] += s.sum(2) + h_dh
+
+    # 4. the gradient of dt A is the reverse in-chunk cumsum of dcum
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = (xc * du).sum(-1) + Af * ddA
+    # dA = sum_k dt_k ddA_k = sum_m dcum_m cum_m / A, taken term by term: each
+    # pair's dS_ij with cum_i - cum_j and each s_j with cum_last - cum_j, not
+    # dcum_m with cum_m (which reaches some -200 at chunk 256 and would
+    # multiply the rounding of dcum's cancelling sums by as much)
+    dcum_cum = ((dS * (cum.permute(0, 1, 3, 2)[..., :, None]
+                       - cum.permute(0, 1, 3, 2)[..., None, :])).sum((-2, -1))
+                + (s * (cum_last[:, :, None, :] - cum)).sum(2)
+                + ((Ch * dC_inter).sum(-1) * cum).sum(2)
+                + h_dh * cum_last)                              # [B,nc,H]
+    dA = dcum_cum.sum((0, 1)) / Af
+    dx = dtc[..., None] * du
+
+    # 5. a group's B and C serve its heads: their gradients are the sums
+    dB = dB.reshape(Bsz, nc, Q, G, rep, N).sum(4)
+    dC = dC.reshape(Bsz, nc, Q, G, rep, N).sum(4)
+    Sp = nc * Q
+    return (dx.reshape(Bsz, Sp, H, P)[:, :S].to(x.dtype),
+            ddt.reshape(Bsz, Sp, H)[:, :S],
+            dA,
+            dB.reshape(Bsz, Sp, G, N)[:, :S].to(B_.dtype),
+            dC.reshape(Bsz, Sp, G, N)[:, :S].to(C.dtype),
+            d_init)

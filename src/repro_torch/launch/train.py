@@ -1,4 +1,5 @@
-"""Training launcher of the port: a dense architecture on one device.
+"""Training launcher of the port: a dense or Mamba-2 architecture on one
+device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --preset smoke --steps 50 --deadline 1800 [--device cuda|cpu]
@@ -9,8 +10,7 @@ the JAX package's launcher prints: the loss and ms/step every 10 steps with
 the paper's Eq.-10 minimum device count for the deadline (the fleet
 controller consumes the same signal), then tokens/s and the data locality.
 Checkpoints (``--ckpt-dir``) come with the port's checkpoint module (ROADMAP
-M11) and a data-parallel mesh (``--data-axis``) with M12; the Mamba-2 family
-trains once the SSD scan has its backward kernel.
+M11) and a data-parallel mesh (``--data-axis``) with M12.
 """
 from __future__ import annotations
 
@@ -37,11 +37,6 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
     Returns {"losses", "step_s", "tokens_per_s", "locality", "params"}:
     each step's loss and seconds (host clock around a step that ends when its
     loss reaches the host)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training family {cfg.family!r} is not ported yet: the port trains "
-            "the dense family; Mamba-2 training comes with the SSD scan's "
-            "backward kernel")
     device = resolve_device(device)
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)

@@ -5,11 +5,12 @@ recurrence is computed in its "attention" (quadratic) dual form, and chunk
 boundary states are passed on by a linear scan.  Decode is the O(1) recurrent
 update on a ``[B, H, P, N]`` state.
 
-Prefill's scan goes through the hand-written CUDA SSD kernel
-(``kernels/ssd_scan``, which also returns the final state that decode starts
-from) when ``cfg.attn_impl == "kernel"``; with ``"dense"`` it runs the plain
-chunked function in torch ops.  Params are plain dictionaries;
-``params["layers"]`` is a list with one dictionary per layer.
+The scan of prefill and of training goes through the hand-written CUDA SSD
+kernels (``kernels/ssd_scan``: the forward, which also returns the final state
+that decode starts from, and under autograd the backward) when
+``cfg.attn_impl == "kernel"``; with ``"dense"`` it runs the plain chunked
+function in torch ops, and autograd differentiates those.  Params are plain
+dictionaries; ``params["layers"]`` is a list with one dictionary per layer.
 """
 from __future__ import annotations
 
@@ -109,9 +110,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def mamba_block_fwd(cfg: ModelConfig, p: Dict, u: torch.Tensor,
                     state: Optional[Dict] = None):
-    """u: [B,S,d].  Prefill (state None) scans the whole sequence; decode
-    (state {"ssm": [B,H,P,N] fp32, "conv_*": trailing inputs}) takes one
-    token.  Returns (out [B,S,d], new state)."""
+    """u: [B,S,d].  Prefill and training (state None) scan the whole
+    sequence; decode (state {"ssm": [B,H,P,N] fp32, "conv_*": trailing
+    inputs}) takes one token.  Returns (out [B,S,d], new state); training
+    reads only ``out``, and the causal conv, softplus and the gated norm
+    differentiate as the torch ops they are."""
     if cfg.attn_impl not in ("kernel", "dense"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     Bsz, S, _ = u.shape
@@ -162,9 +165,12 @@ def mamba_layer_fwd(cfg: ModelConfig, lp: Dict, x: torch.Tensor, state=None):
 
 @register("ssm")
 class Mamba2LM:
-    """Public API: init / forward / logits / prefill / decode_step / init_cache.
+    """Public API: init / forward / logits / loss / prefill / decode_step /
+    init_cache.
 
-    The inference methods run under ``torch.no_grad()``."""
+    The inference methods (``forward``, ``logits``, ``prefill``,
+    ``decode_step``) run under ``torch.no_grad()``; ``loss`` runs the
+    grad-enabled ``_forward`` and ``_logits``."""
 
     @staticmethod
     def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Dict:
@@ -183,18 +189,43 @@ class Mamba2LM:
         }
 
     @staticmethod
+    def _forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [B,S] -> final hidden [B,S,D], differentiable; each layer
+        under ``cfg.remat`` when grad mode is on.  The layer is the unit of
+        recompute: ``comm`` and ``comm_lite`` save only attention and FFN
+        outputs, which this layer has none of, so under them the whole layer
+        is recomputed, as the reference's ``jax.checkpoint`` of it does."""
+        x = L.embed(cfg, params["embed"], tokens)
+        whole_layer = cfg.remat in ("comm", "comm_lite")
+        for lp in params["layers"]:
+            def body(x, lp=lp):
+                return mamba_layer_fwd(cfg, lp, x)[0]
+            x = L.remat_wrap(cfg, body, sublayer=whole_layer)(x)
+        return L.apply_norm(cfg, params["final_norm"], x)
+
+    @staticmethod
+    def _logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
+        return L.unembed(cfg, params["embed"], params.get("lm_head"), hidden)
+
+    @staticmethod
     @torch.no_grad()
     def forward(cfg: ModelConfig, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         """tokens [B,S] -> final hidden [B,S,D]."""
-        x = L.embed(cfg, params["embed"], tokens)
-        for lp in params["layers"]:
-            x, _ = mamba_layer_fwd(cfg, lp, x)
-        return L.apply_norm(cfg, params["final_norm"], x)
+        return Mamba2LM._forward(cfg, params, tokens)
 
     @staticmethod
     @torch.no_grad()
     def logits(cfg: ModelConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:
-        return L.unembed(cfg, params["embed"], params.get("lm_head"), hidden)
+        return Mamba2LM._logits(cfg, params, hidden)
+
+    @staticmethod
+    def loss(cfg: ModelConfig, params: Dict, batch: Dict):
+        """Next-token cross-entropy with z-loss of ``batch`` ({"tokens",
+        "labels"}) -> (loss, {"loss": loss})."""
+        hidden = Mamba2LM._forward(cfg, params, batch["tokens"])
+        logits = Mamba2LM._logits(cfg, params, hidden)
+        loss = L.softmax_xent(logits, batch["labels"])
+        return loss, {"loss": loss}
 
     # -- inference ----------------------------------------------------------
     @staticmethod

@@ -144,18 +144,27 @@ def test_cpu_path_counts_no_launch():
 
 
 @pytest.mark.parametrize("which", [0, 1, 3, 5])
-def test_ssd_refuses_autograd_without_a_backward(which):
-    """The scan has no backward kernel: with grad mode on and an input that
-    requires grad (x, dt, B or D here) it raises instead of returning a
-    result that autograd would give no gradient; without grad mode, or under
-    no_grad, it serves as before."""
+def test_ssd_gives_the_gradient_of_the_plain_scan(which):
+    """With grad mode on and one input that requires grad (x, dt, B or D
+    here), ssd returns the values it returns without grad mode and the
+    gradient of the plain chunked scan plus the skip term: through SsdScan
+    and its backward for x, dt and B, through autograd for D."""
     arrs = [to_torch(a) for a in _inputs(*SHAPES[0][:6], "float32")]
-    D = torch.ones(arrs[0].shape[2])
+    D = torch.linspace(0.5, 1.5, arrs[0].shape[2])
     args = arrs + [D]
     plain = ssd(*args, chunk=32)
     args[which] = args[which].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ssd(*args, chunk=32)
+    y = ssd(*args, chunk=32)
+    assert y.requires_grad and torch.equal(y.detach(), plain)
+    dy = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        tuple(y.shape)).astype(np.float32))
+    (got,) = torch.autograd.grad((y * dy).sum(), [args[which]])
+    ref_args = [a.detach().clone() for a in args]
+    ref_args[which].requires_grad_()
+    ref_y = ssd_chunked_ref(*ref_args[:5], chunk=32)[0] \
+        + ref_args[0] * ref_args[5][None, None, :, None]
+    (ref,) = torch.autograd.grad((ref_y * dy).sum(), [ref_args[which]])
+    assert got.shape == args[which].shape and rel_err(got, ref) < 1e-4
     with torch.no_grad():
         assert torch.equal(ssd(*args, chunk=32), plain)
 

@@ -57,14 +57,19 @@ PARAM_TOL = 1e-5
 # a hundred eps
 NEAR_ZERO_GRAD = 100 * AdamWConfig().eps
 
-# stablelm-3b brings LayerNorm (scale and bias), partial rotary and MHA
-ARCHS = ["tinyllama-1.1b", "llama3.2-3b", "stablelm-3b"]
+# stablelm-3b brings LayerNorm (scale and bias), partial rotary and MHA;
+# mamba2-1.3b the SSD scan and its backward
+ARCHS = ["tinyllama-1.1b", "llama3.2-3b", "stablelm-3b", "mamba2-1.3b"]
 
 
 def _np_params(jcfg, seed):
     """A numpy parameter tree with the JAX package's structure and scales:
     normal weights with each leaf's own standard deviation, norm scales
-    around 1 and small norm biases, so that every parameter matters."""
+    around 1 and small norm biases, so that every parameter matters.  A
+    Mamba-2 block's D, A_log and dt_bias (constant at init, so their standard
+    deviation is 0) are spread as in tests/test_torch_mamba2.py: a leaf that
+    starts at 0 would hold its params to 1e-5 of the largest of two Adam
+    steps, a rounding-level difference."""
     init = jax_model(jcfg).init(jcfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
 
@@ -73,10 +78,14 @@ def _np_params(jcfg, seed):
             return {k: walk(v, k) for k, v in tree.items()}
         a = np.asarray(tree, dtype=np.float32)
         noise = rng.standard_normal(a.shape).astype(np.float32)
-        if name == "scale":
+        if name in ("scale", "D"):
             return 1 + 0.1 * noise
         if name == "bias":
             return 0.1 * noise
+        if name == "A_log":
+            return 0.3 * noise
+        if name == "dt_bias":
+            return -1.0 + 0.5 * noise
         return noise * a.std()
     return walk(init)
 
@@ -486,9 +495,25 @@ def test_train_losses_fall_with_grad_accumulation():
     assert result["locality"] == 1.0 and result["tokens_per_s"] > 0
 
 
-def test_train_refuses_a_family_without_a_training_path():
-    with pytest.raises(NotImplementedError, match="ssm"):
-        train.main(["--arch", "mamba2-1.3b", "--device", "cpu", "--steps", "1"])
+def test_train_launcher_trains_mamba2_on_the_cpu(capsys):
+    """The launcher takes family ssm (it refused it while the SSD scan had no
+    backward): the smoke config trains on the CPU and the loss falls."""
+    train.main(["--arch", "mamba2-1.3b", "--device", "cpu", "--preset", "smoke",
+                "--steps", "3", "--seq", "64", "--batch", "4"])
+    out = capsys.readouterr().out
+    assert "[train] mamba2-1.3b" in out and "on 1 device (cpu)" in out
+    assert "step    0 loss" in out and "step    2 loss" in out
+    result = train.train(get_smoke_config("mamba2-1.3b"), steps=4, seq=64,
+                         batch=4, lr=3e-3, device="cpu")
+    assert all(map(math.isfinite, result["losses"]))
+    assert result["losses"][-1] < result["losses"][0]
+
+
+def test_train_refuses_an_arch_without_a_training_path():
+    """A family the port has not ported (zamba2's hybrid) refuses, and says
+    which slice brings it."""
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        train.main(["--arch", "zamba2-1.2b", "--device", "cpu", "--steps", "1"])
 
 
 def test_quickstart_torch_runs_on_the_cpu(capsys):
