@@ -9,7 +9,7 @@ scan forward and backward) from the sources in this checkout, holds each
 against its plain PyTorch version on the card (naming the CUDA kernels that
 each call launched, as the C functions count them), times the attention
 forward and backward in turns against their earlier variants and PyTorch's
-fused backends, serves tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full
+fused backends and the SSD backward against its fp32-pipe variant, serves tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full
 width (random weights from a seed: batch 8 x prompt 1024, 64 generated
 tokens) through the port's prefill and decode steps, trains tinyllama-1.1b,
 stablelm-3b and mamba2-1.3b at full width and depth (batch 8 x 1024, a few
@@ -116,8 +116,11 @@ SSD_SHAPES = [
     (2, 384, 4, 64, 1, 128, 128),
     (2, 512, 4, 64, 2, 128, 256),
     (1, 700, 4, 64, 1, 128, 256),  # ragged
+    # three heads in a group (a head tile of one: the backward's second
+    # warpgroup idle), the last chunk short of its second row tile
+    (1, 300, 3, 64, 1, 128, 128),
 ]
-SSD_INIT_STATE = {1, 5}            # cases also run from a random initial state
+SSD_INIT_STATE = {1, 5, 7}         # cases also run from a random initial state
 # (and, for the backward, with a gradient of the final state)
 
 # K1 at llama3.2-3b's full width (head dim 128, 24 / 8 heads), timed beside the
@@ -248,21 +251,24 @@ def ssd_bwd_bound_ms(x, dt, A, B_, C, chunk, init_state=None, d_final_state=None
     of bytes moved (x, dt, A, B, C, dy and, where given, init_state and the
     final state's gradient read once; dx, ddt, dA, dB, dC and, where
     init_state is given, its gradient written once) over the memory rate and
-    operations over the peak rate for x's type.  Operations are the products
-    the kernel's algebra needs for these inputs, once each: over the pairs
-    j <= i of each chunk, C.B^T once per group and per head dy.u^T, du, dC
-    and dB; per row and head the chunk's two state terms and the terms from
-    the states at the chunk's ends, 2 P N each, five of them."""
+    operations over the peak rate for x's type.  Operations are the least
+    that the algebra needs for these inputs, once each: over the pairs j <= i
+    of each chunk, C.B^T and dC = G B and dB = G^T C once per group (B and C
+    serve every head of a group, so dC and dB need only the sum over its
+    heads of G = L o (dy.u^T)), and per head dy.u^T and du = M^T dy; per row
+    and head the chunk's two state terms and the terms from the states at
+    the chunk's ends, 2 P N each, five of them.  (Counting dC and dB per
+    head, as both kernels do, adds 2 B H pairs 2 N: 94.9 GFLOP in all at
+    mamba2-1.3b's training shape, against the 61.0 counted here.)"""
     Bsz, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     states = 0 if init_state is None else 2 * init_state.numel()
     states += 0 if d_final_state is None else d_final_state.numel()
-    n_bytes = (4 * x.numel() + 2 * (B_.numel() + C.numel())) * x.element_size() \
+    n_bytes = (3 * x.numel() + 2 * (B_.numel() + C.numel())) * x.element_size() \
         + (2 * dt.numel() + 2 * A.numel() + states) * 4
     rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
     pairs = sum(q * (q + 1) // 2 for q in rows)
-    flops = 2 * Bsz * (G * N * pairs + H * pairs * (2 * P + 2 * N)
-                       + 5 * H * P * N * S)
+    flops = 2 * Bsz * (3 * G * N * pairs + 2 * H * P * pairs + 5 * H * P * N * S)
     peak = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -785,8 +791,10 @@ def phase_ssd_bwd_kernels() -> dict:
     """K2b: the backward kernel against its plain version over the forward's
     sweep in both types (every gradient; an initial state and a final-state
     gradient where SSD_INIT_STATE says), two calls bitwise equal, the CUDA
-    kernels of variant_bwd's variant; then timed at mamba2-1.3b's training
-    shape beside its bound and its plain version's time."""
+    kernels of variant_bwd's variant, and where that is the wgmma variant
+    the fp32-pipe one too (named); then at mamba2-1.3b's training shape the
+    two variants and the plain version timed in turns beside the bound, with
+    each variant's split by CUDA kernel."""
     from repro_torch.kernels.ssd_scan import kernel as kssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref
     from repro_torch.testing import rel_err
@@ -800,19 +808,22 @@ def phase_ssd_bwd_kernels() -> dict:
                    if with_init else None)
         return args, h0, dy, d_final
 
-    def check(shape, chunk, dtype, with_init):
+    def check(shape, chunk, dtype, with_init, variant=None):
         """One case: errors against the plain version, the variant whose
-        CUDA kernels ran, and two calls' equality.  Returns the case, the
-        inputs x, dt, A, B, C, the kernel's and the plain version's calls,
-        both results and the CUDA kernels one call launched."""
+        CUDA kernels ran (`variant`, or variant_bwd's), and two calls'
+        equality.  Returns the case, the inputs x, dt, A, B, C, the kernel's
+        and the plain version's calls, both results and the CUDA kernels one
+        call launched."""
         B, S, H, P, G, N = shape
         args, h0, dy, d_final = inputs(B, S, H, P, G, N, dtype, with_init)
         bwd = lambda: kssd.ssd_scan_bwd(  # noqa: E731
-            *args, dy, chunk=chunk, init_state=h0, d_final_state=d_final)
+            *args, dy, chunk=chunk, init_state=h0, d_final_state=d_final,
+            variant=variant)
         plain = lambda: ssd_chunked_bwd_ref(  # noqa: E731
             *args, h0, dy, d_final, chunk=chunk)
         grads, ran, n_kernels = launched_variant(
-            bwd, kssd, kssd.variant_bwd(dtype, P, N, chunk), kssd.VARIANT_KERNELS_BWD)
+            bwd, kssd, variant or kssd.variant_bwd(dtype, P, N, chunk),
+            kssd.VARIANT_KERNELS_BWD)
         again = bwd()
         ref = plain()
         errs = {name: rel_err(g, r) for name, g, r in zip(SSD_GRADS, grads, ref)}
@@ -829,26 +840,45 @@ def phase_ssd_bwd_kernels() -> dict:
             raise AssertionError(f"ssd_scan_bwd disagrees: {case}")
         return case, args, bwd, plain, grads, ref, n_kernels
 
+    # every case through variant_bwd's variant; where that is the wgmma one
+    # (bf16 at P 64, N 128, chunk >= 64), through the fp32-pipe one as well
+    earlier = "ssd_bwd_simt"
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for idx, (B, S, H, P, G, N, chunk) in enumerate(SSD_SHAPES):
+            names = [None]
+            if kssd.variant_bwd(dtype, P, N, chunk) != earlier:
+                names.append(earlier)
             for with_init in sorted({False, idx in SSD_INIT_STATE}):
-                cases.append(check((B, S, H, P, G, N), chunk, dtype, with_init)[0])
+                for name in names:
+                    cases.append(check((B, S, H, P, G, N), chunk, dtype, with_init,
+                                       name)[0])
 
     # the training shape: one mamba2-1.3b layer's scan at batch 8 x 1024,
-    # bf16, chunk 256, no initial state and no final-state gradient
+    # bf16, chunk 256, no initial state and no final-state gradient; the
+    # rule's variant, the fp32-pipe one and the plain version in turns
     shape, chunk = (BATCH, PROMPT_LEN, 64, 64, 1, 128), 256
     case, args, bwd, plain, grads, ref, n_kernels = check(
         shape, chunk, torch.bfloat16, False)
+    earlier_case, _, simt, _, _, _, _ = check(shape, chunk, torch.bfloat16, False,
+                                              earlier)
     abs_err = max(float((g.float() - r.float()).abs().max())
                   for g, r in zip(grads[:5], ref[:5]))
-    ms, order = in_turns([("kernel", bwd), ("plain", plain)], 5)
+    ms, order = in_turns([("kernel", bwd), ("earlier", simt), ("plain", plain)], 5)
+    kernel_ms, earlier_ms = min(ms["kernel"]), min(ms["earlier"])
+    if not (case["variant"] == "ssd_bwd_wgmma" and kernel_ms < earlier_ms):
+        raise AssertionError(f"{case['variant']} is not faster than {earlier}: {order}")
     bound_ms, bound_by = ssd_bwd_bound_ms(*args, chunk)
     main = {**case, "cuda_kernels_per_call": n_kernels, "max_abs_err": abs_err,
-            "kernel_ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
+            "kernel_ms": kernel_ms, "plain_ms": min(ms["plain"]),
             "ms_in_turns": order, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "cuda_kernels": device_split(bwd, 3)}
+            "cuda_kernels": device_split(bwd, 3),
+            "earlier_variant": earlier, "earlier_ms": earlier_ms,
+            "earlier_max_rel_err": max(v for k, v in earlier_case.items()
+                                       if k.endswith("_rel_err")),
+            "earlier_cuda_kernels": device_split(simt, 3),
+            "speedup_over_earlier": earlier_ms / kernel_ms}
     emit("kernels", name="ssd_scan_bwd", sweep=cases,
          max_rel_err_fp32=max(max(v for k, v in c.items() if k.endswith("_rel_err"))
                               for c in cases if c["dtype"] == "float32"),
@@ -1207,8 +1237,9 @@ def main() -> int:
     # train steps); `variant` and `cuda_kernels_per_call` are what the C
     # function counted one call launch at the main path's shape (the SSD
     # scan's wgmma variant: the state pass, then the outputs; the attention
-    # backward's: dQ with delta, then dK/dV; the scan's backward: five
-    # passes); K1 and K1b also at stablelm-3b's head dim 80, with the
+    # backward's: dQ with delta, then dK/dV; the scan's backward: the state
+    # recurrences, the column and the row owners, ddt, the sums); K1 and K1b
+    # also at stablelm-3b's head dim 80, with the
     # launches of its paths
     at_d80 = {"flash_attention_fwd": (k1_d80, serves["stablelm-3b"]["kernel_launches"]),
               "flash_attention_bwd": (k1b_d80, trained["stablelm-3b"]
@@ -1240,6 +1271,9 @@ def main() -> int:
             "variant": numbers["variant"],
             "cuda_kernels_per_call": numbers["cuda_kernels_per_call"],
         })
+        if name == "ssd_scan_bwd":   # the fp32-pipe variant, timed in turns
+            rows[-1]["earlier_variant"] = numbers["earlier_variant"]
+            rows[-1]["earlier_ms"] = numbers["earlier_ms"]
         if name in at_d80:
             d80, launches = at_d80[name]
             rows[-1]["head_dim_80"] = {

@@ -179,6 +179,18 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
 }
 
+// K-major operand, k-step kk, of an [atoms][ROWS][64] swizzled bf16 tile
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(const __nv_bfloat16* tile, int kk) {
+  return sw128_desc(tile + (kk / 4) * ROWS * 64 + (kk % 4) * 16, 16, 1024);
+}
+// MN-major operand (rows are the reduction index), k-step kk, of an
+// [atoms][ROWS][64] swizzled bf16 tile
+template <int ROWS>
+__device__ __forceinline__ uint64_t mnmajor(const __nv_bfloat16* tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 64, ROWS * 128, 1024);
+}
+
 // before the first wgmma of a batch whose register operands (accumulator, A
 // fragment) other instructions wrote
 __device__ __forceinline__ void wgmma_fence() {

@@ -915,18 +915,6 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
                 s_first ? head : pos, b);
 }
 
-// K-major operand, k-step kk, of an [atoms][ROWS][64] swizzled tile
-template <int ROWS>
-__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int kk) {
-  return sw128_desc(tile + (kk / 4) * ROWS * 64 + (kk % 4) * 16, 16, 1024);
-}
-// MN-major operand (rows are the reduction index), k-step kk, of an
-// [atoms][ROWS][64] swizzled tile
-template <int ROWS>
-__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int kk) {
-  return sw128_desc(tile + kk * 16 * 64, ROWS * 128, 1024);
-}
-
 
 // dS of one 64 x 64 tile of the dQ kernel, from the accumulators of S
 // (sc) and dP (dp), as the bf16 A fragments of the four k-steps of

@@ -18,7 +18,21 @@
 // and the gradient of every cum that a term reads, whose reverse in-chunk
 // cumsum is the gradient of dt A.
 //
-// Five kernels, one after the other on the stream:
+// What bounds it on this card.  At mamba2-1.3b's training shape (x
+// [8,1024,64,64] bf16, N 128, chunk 256) the inputs and outputs are some
+// 214 MB (0.064 ms at 3.35 TB/s) against some 61 GFLOP of products that the
+// algebra needs at the least (0.062 ms at the bf16 tensor-core peak: C.B^T,
+// and dB and dC on the sum over a group's heads of L o (dy.u^T), once a
+// group): bytes bound it, narrowly.  Both variants take dB and dC per head
+// (95 GFLOP there), which lets a block own its heads' sums.  Two variants; the wrapper's
+// `kernel.variant_bwd()` chooses by (dtype, P, N, chunk) and passes its code:
+//  * `ssd_bwd_wgmma`, bf16 at P 64, N 128, chunk 64, 128 or 256 (the
+//    forward's `ssd_wgmma` domain: mamba2-1.3b's training path), three
+//    kernels on wgmma + TMA (the section that holds them says how), then
+//    `ssd_bwd_dt` and `ssd_bwd_reduce` below.
+//  * `ssd_bwd_simt`, every other input and every fp32 one (which must hold
+//    the plain version to 1e-4): five kernels on the fp32 pipes, 4 x 4
+//    register tiles a thread, one after the other on the stream:
 //  1. `ssd_bwd_chunk_state`, one block per (batch, chunk, head): cum (written
 //     for the later passes), the chunk's term of the state recurrence
 //     sum_j exp(cum_last - cum_j) u_j (x) B_j and of the reverse one
@@ -34,25 +48,18 @@
 //     the rows i of the pairs left of it (dC, the cum_i terms), then the
 //     terms from the states at the chunk's two ends.  dB and dC of the heads
 //     of the tile are summed in registers; dx and x.du are written.
-//  4. `ssd_bwd_dt`, one thread per (batch, chunk, head): the reverse cumsum of
-//     the cum gradients, ddt and the chunk's part of dA.
+//  4. `ssd_bwd_dt`, one thread per (batch, chunk, head, 8 rows): the reverse
+//     cumsum of the cum gradients, ddt and the chunk's part of dA.
 //  5. `ssd_bwd_reduce`: dB and dC summed over the head tiles of a group (in a
 //     fixed order) and cast to the inputs' type; dA summed over batch and
 //     chunks.
-// No atomics: every sum has one order, so two calls give equal bits.
-//
-// What bounds it on this card.  At mamba2-1.3b's training shape (x
-// [8,1024,64,64] bf16, N 128, chunk 256) the inputs and outputs are some
-// 210 MB (0.06 ms at 3.35 TB/s) against some 95 GFLOP of products that the
-// algebra needs (0.1 ms at the bf16 tensor-core peak): operations bound it.
-// This first version runs every product on the fp32 pipes (67 TFLOP/s at
-// best), from fp32 copies of the tiles in shared memory, 4 x 4 register
-// tiles a thread: it is simple, it holds fp32 inputs to 1e-4, and it is the
-// yardstick the tensor-core design after it (wgmma + TMA) will be measured
-// against.  It computes some 150 GFLOP: the pair products (C.B^T and dy.u^T
-// for each pair of 64-row tiles) twice, once for the column role and once
-// for the row role, so that no block needs another's sums.  The fp32
-// scratch of pass 2 is two [B, nc, H, P, N] arrays (67 MB each there).
+//    It computes some 150 GFLOP at the training shape on the fp32 pipes (67
+//    TFLOP/s at best): the pair products (C.B^T and dy.u^T for each pair of
+//    64-row tiles) twice, once for the column role and once for the row
+//    role, so that no block needs another's sums.  The fp32 scratch of pass
+//    2 is two [B, nc, H, P, N] arrays (67 MB each there).
+// No variant uses atomics: every sum has one order, so two calls give equal
+// bits.
 //
 // dA = sum_m dcum_m cum_m / A is taken term by term (each pair's dS_ij with
 // cum_i - cum_j, each s_j with cum_last - cum_j), never as dcum_m cum_m: cum
@@ -66,11 +73,15 @@
 // g = h / (H / G), not a repeat of B and C.  Rows past S load as 0 with
 // dt = 0, as the forward pads them, and are never written.
 //
-// The C interface at the end returns cudaGetLastError() of the launches.
+// The C interface at the end returns cudaGetLastError() of the launches (or
+// cudaErrorInvalidValue when the driver refuses a tensor map).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../csrc/hopper_mma.cuh"
+#include "../../csrc/hopper_sm90.cuh"
 
 namespace {
 
@@ -84,16 +95,27 @@ constexpr int kScanRegs = kMaxP * kMaxN / kThreads;  // state elements a thread
 
 // The launches of each CUDA kernel since the library was loaded, counted at
 // the launch itself once it succeeded (read through ssd_bwd_kernel_launches).
-enum SsdBwdKernel { kChunkState, kStateScan, kChunkGrads, kDt, kReduce, kNumKernels };
+enum SsdBwdKernel {
+  kChunkState, kStateScan, kChunkGrads, kDt, kReduce,
+  kStatesWgmma, kDxdbWgmma, kDcWgmma, kNumKernels
+};
 const char* const kKernelNames[kNumKernels] = {
     "ssd_bwd_chunk_state", "ssd_bwd_state_scan", "ssd_bwd_chunk_grads",
-    "ssd_bwd_dt", "ssd_bwd_reduce"};
+    "ssd_bwd_dt", "ssd_bwd_reduce", "ssd_bwd_states_wgmma",
+    "ssd_bwd_dxdb_wgmma", "ssd_bwd_dc_wgmma"};
 long long g_launches[kNumKernels] = {};
 
 cudaError_t counted(cudaError_t e, SsdBwdKernel kernel) {
   if (e == cudaSuccess) ++g_launches[kernel];
   return e;
 }
+
+// The codes of kernel.VARIANT_CODES_BWD (a test holds the two to each other);
+// the wrapper's variant_bwd() chooses.
+enum SsdBwdVariant {
+  kBwdFp32Pipes = 0,  // ssd_bwd_simt
+  kBwdWgmma = 1,      // ssd_bwd_wgmma
+};
 
 struct BwdParams {
   const void* x;      // [B, S, H, P], fp32 or bf16
@@ -111,17 +133,21 @@ struct BwdParams {
   void* dc;
   float* dh0;         // [B, H, P, N]
   // fp32 scratch, carved out of one buffer by carve()
-  float* cum;         // [B, nc, H, Q]
+  float* cum;         // [B, nc, H, cum_ld]: cum (ssd_bwd_wgmma: then dt)
   float* st;          // [B, nc, H, P, N]: chunk state term, then h_c
   float* dst;         // [B, nc, H, P, N]: chunk term of dh, then dh_{c+1}
+                      // (ssd_bwd_wgmma: both in bf16, h_c and dh_{c+1} only)
   float* hdh;         // [B, nc, H]: exp(cum_last) <h_c, dh_{c+1}>
   float* rdcum;       // [B, S, H]: the cum gradient of the pairs and y_inter
   float* rs;          // [B, S, H]: s_j = u_j . du_inter_j
+  void* hb;           // ssd_bwd_wgmma: h_c [B, nc, H, P, N] bf16 (in st's place)
+  void* dhb;          // ssd_bwd_wgmma: dh_{c+1} (in dst's place)
   float* da_tile;     // [B, nc, H, Q / 64 or 1]: a row tile's part of A dA
   float* dA_part;     // [B, nc, H]: a chunk's A dA
   float* db_part;     // [B, S, H / heads, N]
   float* dc_part;
   int batch, S, H, G, P, N, Q, nc, heads;
+  int cum_ld;         // floats from one (b, chunk, head)'s cum to the next
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -783,32 +809,52 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_grads(BwdParams p) 
 // ---------------------------------------------------------------------------
 
 
-__global__ void __launch_bounds__(128) ssd_bwd_dt(BwdParams p) {
+// One block per (batch, chunk, 32 heads), one thread per (head, segment of
+// kDtRows rows): the segments' sums meet in shared memory, and each thread
+// starts its segment's reverse cumsum from the sums of the segments after it,
+// added in one order (two calls give equal bits).  Neighbouring threads take
+// neighbouring heads, so each warp reads 128 contiguous bytes a row.
+constexpr int kDtRows = 8;
+
+__global__ void __launch_bounds__(1024) ssd_bwd_dt(BwdParams p) {
+  __shared__ float seg_s[kMaxChunk / kDtRows][32], seg_d[kMaxChunk / kDtRows][32];
   const int H = p.H, Q = p.Q, S = p.S;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)p.batch * p.nc * H) return;
-  const int h = static_cast<int>(idx % H);
-  const long long bc = idx / H;  // idx = (b * nc + chunk) * H + h
-  const int ci = static_cast<int>(bc % p.nc);
-  const long long b = bc / p.nc;
+  const int hl = threadIdx.x % 32, sg = threadIdx.x / 32, n_seg = Q / kDtRows;
+  const int h = blockIdx.x * 32 + hl, ci = blockIdx.y, b = blockIdx.z;
   const int c0 = ci * Q, rows = min(Q, S - c0);
-  const long long o = (b * S + c0) * H + h;  // the chunk's first row
+  const int k0 = sg * kDtRows, k1 = min(k0 + kDtRows, rows);
+  const long long o = ((long long)b * S + c0) * H + h;  // the chunk's first row
   // s_j moves cum_j down and cum_last up: after the reverse cumsum, row k
   // holds the s of the rows before it
+  float sum_s = 0.f, sum_d = 0.f;
+  if (h < H) {
+    for (int k = k0; k < k1; ++k) {
+      const float sv = p.rs[o + (long long)k * H];
+      sum_s += sv;
+      sum_d += p.rdcum[o + (long long)k * H] - sv;
+    }
+  }
+  seg_s[sg][hl] = sum_s;
+  seg_d[sg][hl] = sum_d;
+  __syncthreads();
+  if (h >= H) return;
+  const long long idx = ((long long)b * p.nc + ci) * H + h;
   float total_s = 0.f;
-  for (int k = 0; k < rows; ++k) total_s += p.rs[o + (long long)k * H];
-  const float a = p.A[h];
+  for (int g = 0; g < n_seg; ++g) total_s += seg_s[g][hl];
   float acc = p.hdh[idx] + total_s;
-  for (int k = rows - 1; k >= 0; --k) {
+  for (int g = n_seg - 1; g > sg; --g) acc += seg_d[g][hl];
+  const float a = p.A[h];
+  for (int k = k1 - 1; k >= k0; --k) {
     const long long r = o + (long long)k * H;
     acc += p.rdcum[r] - p.rs[r];
     p.ddt[r] += a * acc;
   }
+  if (sg != 0) return;
   // A dA of the chunk: its row tiles' parts and <h_c, dh_{c+1}>'s
   const int T = Q >= 64 ? 64 : 32, nt = Q / T, n_valid = (rows + T - 1) / T;
   float v = 0.f;
   for (int t = 0; t < n_valid; ++t) v += p.da_tile[idx * nt + t];
-  p.dA_part[idx] = v + p.hdh[idx] * p.cum[idx * Q + Q - 1];
+  p.dA_part[idx] = v + p.hdh[idx] * p.cum[idx * p.cum_ld + Q - 1];
 }
 
 // ---------------------------------------------------------------------------
@@ -844,6 +890,900 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce(BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at P = 64, N = 128, chunk Q of 64, 128 or 256 (mamba2-1.3b's training
+// path): `ssd_bwd_wgmma`, three kernels on wgmma + TMA (hopper_sm90.cuh),
+// then ssd_bwd_dt and ssd_bwd_reduce above, which read the scratch these
+// write in the layout the fp32 kernels write it.
+//  (A) `ssd_bwd_states_wgmma`, one block per (batch, head), two warpgroups
+//      that each hold half of the state's N columns in fp32 accumulator
+//      registers, as the forward's state pass (`ssd_state_wgmma`): the
+//      forward recurrence h <- h exp(cum_last) + (x w)^T B over the chunks,
+//      w_j = dt_j exp(cum_last - cum_j), then the reverse one
+//      dh <- dh exp(cum_last) + (dy e)^T C from the last chunk down,
+//      e_i = exp(cum_i).  (x w) and (dy e) are each the sum of two bf16
+//      parts (hi, lo), so the states keep some 16 bits of each term.  It
+//      writes what (B) and (C) read: cum and dt of each chunk (fp32), h_c and
+//      dh_{c+1} (bf16: they are operands of bf16 products there), and from
+//      the registers exp(cum_last) <h_c, dh_{c+1}> (h_c as (B) and (C) read
+//      it) and the gradient of the initial state (fp32).  x, B, dy and C
+//      arrive by TMA in 64-row sub-tiles through a ring of four stages.
+//      This one kernel replaces `ssd_bwd_chunk_state` and
+//      `ssd_bwd_state_scan`: no fp32 [B, nc, H, P, N] scratch.
+//  (B) `ssd_bwd_dxdb_wgmma`, the column owner: one block per (batch, chunk,
+//      64-row tile j, tile of up to 8 heads of one group); for each head and
+//      each row tile i >= j, with S = dt_j x_j.dy_i^T and K = B_j.C_i^T
+//      (both [j x i], wgmma from shared memory): M^T = L o K and
+//      G^T = L o S in fp32 registers, rounded to bf16 only as the A
+//      operands of du_j += M^T dy_i and dB_j += G^T C_i; the sums over i of
+//      dS = M o S for the cum_j terms.  Then the terms from dh_{c+1}:
+//      du_j += w B_j.dh^T, s_j = u_j . that, dB_j += w dt_j x_j.dh.  It
+//      writes dx, x.du, s_j, the cum_j terms and its part of dA; dB of the
+//      block's heads summed in registers into the partials of
+//      ssd_bwd_reduce.
+//  (C) `ssd_bwd_dc_wgmma`, the row owner: one block per (batch, chunk,
+//      64-row tile i, head tile); for each head and each row tile j <= i
+//      the same two products, G = L o S rounded to bf16 for
+//      dC_i += G B_j, and the row sums of dS and the pairs' part of dA;
+//      then dC_i += e_i dy_i.h_c and dy_i . y_inter_i = C_i . that.  It adds
+//      its cum_i terms and its part of dA to what (B) wrote (the stream
+//      orders the two), and writes dC's partials.
+// (B) and (C) are K1b's two kernels with the operands renamed (C <-> Q,
+// B <-> K, x dt <-> V, dy <-> dO; no softmax), each computing the two pair
+// products, so no block waits for another's sums.  Each block has two
+// warpgroups that take alternate heads of its tile, each with two head slots
+// (the head's fixed tile, its state and its cum and dt) and a ring of two
+// 64-row tiles, which its thread 0 fills by TMA as soon as the warpgroup is
+// done with a slot (a warpgroup barrier).  No producer warp: (B) holds dB
+// (64 registers), du (32), both pair products (64) and their bf16 fragments
+// (32), and with a producer warp or warpgroup ptxas capped a thread at 168
+// registers (it counts 288 threads as 384), spilled, and serialized the
+// wgmmas (C7512); 256 threads leave 255.  The block's own tile
+// and the other operand's tiles of the group (B_j and C_i, i >= j, or C_i
+// and B_j, j <= i) stay in shared memory for all its heads.  The two
+// warpgroups' sums of dB or dC meet in shared memory in a fixed order.
+// Rows past S load as zeros (TMA's out-of-bounds fill) with dt = 0, so they
+// add nothing.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 4;  // ring of (A)
+constexpr int kNW = 2;      // consumer warpgroups of (B) and (C)
+constexpr int kRing = 2;    // 64-row tiles in each warpgroup's ring
+constexpr int kTileBytes = 8192;   // [64][64] bf16
+constexpr int kWideBytes = 16384;  // [2][64][64] bf16: 128 columns
+
+// Elements (r, col) and (r, col + 1) of a [atoms][64][64] swizzled tile, col
+// even: the 16-byte chunk c of row r sits at chunk c ^ (r % 8) of its atom.
+__device__ __forceinline__ float2 tile_pair(const bf16* tile, int r, int col) {
+  const bf16* at = tile + (col / 64) * 64 * 64 + r * 64 +
+                   ((((col % 64) / 8) ^ (r & 7)) * 8) + col % 8;
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+}
+
+// The sum of v over the 4 threads of a quad (the threads that share the rows
+// of a wgmma accumulator), in one order.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The sum of v over a warpgroup in one order: a tree within each warp, then
+// the four warps in order, through red [4] and named barrier `bar`; every
+// thread of the warpgroup calls it, thread 0 of the warpgroup gets the sum.
+__device__ __forceinline__ float warpgroup_sum(float v, float* red, int bar) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int t = threadIdx.x % 128;
+  if (t % 32 == 0) red[t / 32] = v;
+  named_barrier(bar, 128);
+  const float total = red[0] + red[1] + red[2] + red[3];
+  named_barrier(bar, 128);  // red is read before the next call writes it
+  return total;
+}
+
+constexpr size_t states_smem_bytes() {
+  // slack; stages of x or dy [64][64] and B or C [2][64][64]; the lo part of
+  // the weighted tile; cum, dt and the weights of a chunk; warp sums (scan,
+  // dot); barriers
+  return 1024 + kStages * 24576 + 8192 + 3 * 256 * 4 + 16 * 4 + kStages * 8;
+}
+
+template <int NT>  // NT = Q / 64 sub-tiles a chunk
+__global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
+    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+    const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUtensorMap tc,
+    BwdParams p) {
+  constexpr int Q = NT * 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  // stage s: x or dy at s * 24 KB, B or C (two 64-column atoms) 8 KB after it
+  bf16* Xlo = reinterpret_cast<bf16*>(base + kStages * 24576);  // [64][64]
+  float* cum = reinterpret_cast<float*>(Xlo + 64 * 64);
+  float* dts = cum + 256;
+  float* wts = dts + 256;
+  float* wsum = wts + 256;  // [8] the scan's
+  float* dsum = wsum + 8;   // [8] the dot's
+  uint64_t* full = reinterpret_cast<uint64_t*>(dsum + 8);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int H = p.H, S = p.S, nc = p.nc;
+  const int grp = h / (H / p.G);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // warpgroup wg holds the state's columns 64 wg .. 64 wg + 63
+  const int wg = tid / 128, wwarp = warp % 4;
+  const int g = lane / 4, qd = lane % 4;
+  // units: the chunks' sub-tiles of (x, B) from the first chunk on, then of
+  // (dy, C) from the last chunk down
+  const int n_units = nc * NT;
+
+  auto issue = [&](int u) {  // unit u into stage u % 4
+    unsigned char* st = base + (u % kStages) * 24576;
+    const bool fwd = u < n_units;
+    const int v = fwd ? u : u - n_units;
+    const int row = (fwd ? v / NT : nc - 1 - v / NT) * Q + (v % NT) * 64;
+    const CUtensorMap* rows_map = fwd ? &tx : &tdy;
+    const CUtensorMap* cols_map = fwd ? &tb : &tc;
+    mbar_expect_tx(full + u % kStages, 3 * 8192);
+    tma_load_4d(st, rows_map, full + u % kStages, 0, h, row, b);
+    tma_load_4d(st + 8192, cols_map, full + u % kStages, 0, grp, row, b);
+    tma_load_4d(st + 16384, cols_map, full + u % kStages, 64, grp, row, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int u = 0; u < min(kStages, 2 * n_units); ++u) issue(u);
+
+  // this warpgroup's half of a [P, N] state in the accumulator layout: acc[i]
+  // is (p = 16 wwarp + g + 8 ((i/2)%2), n = 64 wg + 8 (i/4) + 2 qd + i%2)
+  const long long bh = ((long long)b * H + h) * 64 * 128;
+  auto pos = [&](int i) {
+    return (wwarp * 16 + g + 8 * ((i / 2) % 2)) * 128 + 64 * wg + 8 * (i / 4) + 2 * qd;
+  };
+  const float a = p.A[h];
+
+  // dt of chunk c, 0 past S, this thread's row
+  auto load_dt = [&](int c) {
+    return (tid < min(Q, S - c * Q)) ? p.dt[((long long)b * S + c * Q + tid) * H + h]
+                                     : 0.f;
+  };
+  // cum = cumsum(dt A) and dt of the chunk into shared memory: one element a
+  // thread, a scan within each warp, then over the warps' sums
+  auto scan = [&](float d) {
+    float incl = (tid < Q) ? d * a : 0.f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    __syncthreads();  // the previous chunk no longer reads cum, dts, wsum
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) incl += wsum[w];
+    if (tid < Q) {
+      cum[tid] = incl;
+      dts[tid] = d;
+    }
+    __syncthreads();
+  };
+
+  // One pass a chunk: the chunks from the first on for h (acc starts from
+  // h0), then from the last down for dh (acc starts again from dhT: h after
+  // the last chunk is not an output).  In each, acc^T += (tile w)^T . cols
+  // over the chunk's NT sub-tiles, w in wts.
+  bf16* hb = static_cast<bf16*>(p.hb);
+  bf16* dhb = static_cast<bf16*>(p.dhb);
+  float acc[32];
+  float d_next = load_dt(0);  // loaded one pass ahead
+  for (int q = 0; q < 2 * nc; ++q) {
+    const bool fwd = q < nc;
+    const int c = fwd ? q : 2 * nc - 1 - q;
+    const float d = d_next;
+    if (q + 1 < 2 * nc) d_next = load_dt(q + 1 < nc ? q + 1 : 2 * nc - 2 - q);
+    if (q == 0 || q == nc) {
+      const float* from = fwd ? p.h0 : p.dhT;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        float2 v = make_float2(0.f, 0.f);
+        if (from) v = *reinterpret_cast<const float2*>(from + bh + pos(i));
+        acc[i] = v.x;
+        acc[i + 1] = v.y;
+      }
+    }
+    scan(d);
+    const long long bch = ((long long)b * nc + c) * H + h;
+    const long long at = bch * 64 * 128;
+    const float cum_last = cum[Q - 1];
+    const float decay = expf(cum_last);
+    if (fwd) {
+      if (tid < Q) {
+        p.cum[bch * p.cum_ld + tid] = cum[tid];
+        p.cum[bch * p.cum_ld + Q + tid] = dts[tid];
+        wts[tid] = dts[tid] * expf(cum_last - cum[tid]);
+      }
+      // h_c in bf16, then its decay over the chunk
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        *reinterpret_cast<uint32_t*>(hb + at + pos(i)) = pack_bf16(acc[i], acc[i + 1]);
+        acc[i] *= decay;
+        acc[i + 1] *= decay;
+      }
+      __syncthreads();  // wts is set
+    } else {
+      if (tid < Q) wts[tid] = expf(cum[tid]);
+      // dh_{c+1} in bf16; exp(cum_last) <h_c, dh_{c+1}> with h_c as the other
+      // kernels read it (this thread wrote those elements in the forward
+      // pass); then the decay
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        *reinterpret_cast<uint32_t*>(dhb + at + pos(i)) = pack_bf16(acc[i], acc[i + 1]);
+        const float2 hv =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hb + at + pos(i)));
+        dot = fmaf(hv.x, acc[i], dot);
+        dot = fmaf(hv.y, acc[i + 1], dot);
+        acc[i] *= decay;
+        acc[i + 1] *= decay;
+      }
+      // the block's sum in one order: a tree within each warp, then the warps
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) dsum[warp] = dot;
+      __syncthreads();  // wts and dsum are set
+      if (tid == 0) {
+        float total = 0.f;
+        for (int w = 0; w < 8; ++w) total += dsum[w];
+        p.hdh[bch] = decay * total;
+      }
+    }
+
+    for (int t = 0; t < NT; ++t) {
+      const int u = q * NT + t;
+      unsigned char* st = base + (u % kStages) * 24576;
+      mbar_wait(full + u % kStages, (u / kStages) & 1);
+      // tile w -> hi (in place) and lo, 16 bytes at a time.  The swizzle only
+      // permutes 16-byte chunks inside a 128-byte row, so chunk k belongs to
+      // row k / 8 and hi and lo keep the tile's layout.
+#pragma unroll
+      for (int k = tid; k < 512; k += 256) {
+        const float w = wts[t * 64 + k / 8];
+        uint4* px = reinterpret_cast<uint4*>(st) + k;
+        uint4 xv4 = *px, vlo;
+        uint32_t* pv = reinterpret_cast<uint32_t*>(&xv4);
+        uint32_t* pl = reinterpret_cast<uint32_t*>(&vlo);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(pv + e);
+          const float f0 = __low2float(xv) * w, f1 = __high2float(xv) * w;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(f0, f1);
+          pv[e] = *reinterpret_cast<const uint32_t*>(&hi);
+          pl[e] = pack_bf16(f0 - __low2float(hi), f1 - __high2float(hi));
+        }
+        *px = xv4;
+        reinterpret_cast<uint4*>(Xlo)[k] = vlo;
+      }
+      fence_proxy_async();
+      __syncthreads();
+      // A = (tile w)^T [P x 64 rows] MN-major, B = this warpgroup's 64
+      // columns of the [64 rows x N] tile, MN-major
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = sw128_desc(st + 8192 + wg * 8192 + kk * 2048, 8192, 1024);
+        wgmma_ss_n64<1, 1>(acc, sw128_desc(st + kk * 2048, 8192, 1024), db, 1);
+        wgmma_ss_n64<1, 1>(acc, sw128_desc(reinterpret_cast<unsigned char*>(Xlo) + kk * 2048, 8192, 1024), db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncthreads();  // stage u % 4 and Xlo are free
+      if (tid == 0 && u + kStages < 2 * n_units) issue(u + kStages);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    *reinterpret_cast<float2*>(p.dh0 + bh + pos(i)) = make_float2(acc[i], acc[i + 1]);
+}
+
+// Shared memory of (B) and (C): the block's own tile [2][64][64] and the
+// other operand's tiles [NT][2][64][64] (tile k at k * 16 KB); for each
+// consumer warpgroup two head slots, each the head's fixed tile [64][64], its
+// state [2][64][64] and its cum then dt [2][Q] fp32, and a ring of kRing
+// [64][64] tiles; then the barriers and each warpgroup's reduction scratch.
+template <int NT>
+struct PairLayout {
+  static constexpr int kCdt = ((NT * 512 + 1023) / 1024) * 1024;
+  static constexpr int kHead = kTileBytes + kWideBytes + kCdt;
+  static constexpr int kRes = kWideBytes * (1 + NT);
+  static constexpr int kPerWg = 2 * kHead + kRing * kTileBytes;
+  static constexpr int kBars = 1 + kNW * (2 + kRing);
+  static constexpr size_t kBytes = 1024 + kRes + kNW * kPerWg + 8 * kBars + 4 * 4 * kNW;
+  static_assert(kBytes <= 232448, "more than 227 KB");
+  static_assert(kHead % 1024 == 0, "1,024-byte atoms");
+  // the other warpgroup's sums of dB or dC (fp32, 64 a thread) fit its slots
+  static_assert(2 * kHead >= 64 * 128 * 4, "exchange");
+};
+
+// One block's barriers, each completed by TMA's byte count: res (the
+// resident tiles); per warpgroup w its two head slots', then its ring's
+struct PairBars {
+  uint64_t *res, *hfull, *rfull;
+  __device__ PairBars(uint64_t* bars, int w) {
+    res = bars;
+    hfull = bars + 1 + w * (2 + kRing);
+    rfull = hfull + 2;
+  }
+};
+
+// Where a block of (B) or (C) is: its 64-row tile t of chunk c of batch b,
+// heads [h_first, h_first + heads) of group grp; the other tiles it pairs t
+// with are [lo, hi); n_valid tiles of the chunk hold a row < S.
+struct PairItem {
+  int b, c, c0, rows, t, ht, h_first, grp, lo, hi, n_valid;
+};
+
+// The loads of (B) and (C), each issued by one thread: the resident tiles
+// (the block's own tile from `own`, the other operand's tiles [lo, hi) from
+// `other`); the n-th head of warpgroup w into its slot n % 2 (the fixed
+// tile from `fixed`, the state from `state`, cum and dt); and ring tile m of
+// warpgroup w (tile lo + m % (hi - lo) of `moving` for its head
+// m / (hi - lo)) into its ring slot m % kRing.
+__device__ __forceinline__ void load_resident(const PairItem& it, unsigned char* base,
+                                              uint64_t* res, const CUtensorMap* own,
+                                              const CUtensorMap* other) {
+  mbar_expect_tx(res, (1 + it.hi - it.lo) * kWideBytes);
+  tma_load_4d(base, own, res, 0, it.grp, it.c0 + it.t * 64, it.b);
+  tma_load_4d(base + kTileBytes, own, res, 64, it.grp, it.c0 + it.t * 64, it.b);
+  for (int k = it.lo; k < it.hi; ++k) {
+    unsigned char* dst = base + kWideBytes * (1 + k);
+    tma_load_4d(dst, other, res, 0, it.grp, it.c0 + k * 64, it.b);
+    tma_load_4d(dst + kTileBytes, other, res, 64, it.grp, it.c0 + k * 64, it.b);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void load_head(const PairItem& it, const BwdParams& p, int w,
+                                          int n, unsigned char* slots, uint64_t* hfull,
+                                          const CUtensorMap* fixed,
+                                          const CUtensorMap* state) {
+  constexpr int Q = NT * 64;
+  const int s = n & 1, h = it.h_first + w + n * kNW;
+  unsigned char* hs = slots + s * PairLayout<NT>::kHead;
+  mbar_expect_tx(hfull + s, kTileBytes + kWideBytes + 2 * Q * 4);
+  tma_load_4d(hs, fixed, hfull + s, 0, h, it.c0 + it.t * 64, it.b);
+  const long long bch = ((long long)it.b * p.nc + it.c) * p.H + h;
+  tma_load_2d(hs + kTileBytes, state, hfull + s, 0, static_cast<int>(bch * 64));
+  tma_load_2d(hs + kTileBytes + 8192, state, hfull + s, 64, static_cast<int>(bch * 64));
+  bulk_load(hs + kTileBytes + kWideBytes, p.cum + bch * p.cum_ld, 2 * Q * 4, hfull + s);
+}
+
+template <int NT>
+__device__ __forceinline__ void load_ring(const PairItem& it, int w, int m,
+                                          unsigned char* slots, uint64_t* rfull,
+                                          const CUtensorMap* moving) {
+  const int cnt = it.hi - it.lo, r = m % kRing;
+  const int h = it.h_first + w + (m / cnt) * kNW, k = it.lo + m % cnt;
+  mbar_expect_tx(rfull + r, kTileBytes);
+  tma_load_4d(slots + 2 * PairLayout<NT>::kHead + r * kTileBytes, moving, rfull + r, 0,
+              h, it.c0 + k * 64, it.b);
+}
+
+// The block's item of (B) or (C): the grid walks (tile, head tile, batch and
+// chunk) with the tile fastest, longest first, so that the tiles of one
+// (batch, chunk, head tile) run side by side and share their inputs in L2.
+template <int NT, bool kRows>
+__device__ __forceinline__ PairItem pair_item(const BwdParams& p) {
+  constexpr int Q = NT * 64;
+  PairItem it;
+  const int n_ht = p.H / p.heads;
+  const int k = static_cast<int>(blockIdx.x % NT);
+  const int rem = static_cast<int>(blockIdx.x / NT);
+  it.ht = rem % n_ht;
+  const int bc = rem / n_ht;
+  it.b = bc / p.nc;
+  it.c = bc % p.nc;
+  it.c0 = it.c * Q;
+  it.rows = min(Q, p.S - it.c0);
+  it.n_valid = (it.rows + 63) / 64;
+  // the column owner's tile j pairs with i in [j, n_valid): j = 0 first; the
+  // row owner's tile i with j in [0, i]: the last first
+  it.t = kRows ? NT - 1 - k : k;
+  it.lo = kRows ? 0 : it.t;
+  it.hi = kRows ? it.t + 1 : it.n_valid;
+  it.h_first = it.ht * p.heads;
+  it.grp = it.h_first / (p.H / p.G);
+  return it;
+}
+
+template <int NT>
+__device__ __forceinline__ void pair_init_barriers(uint64_t* bars) {
+  for (int i = 0; i < PairLayout<NT>::kBars; ++i) mbar_init(bars + i, 1);
+  mbar_fence_init();
+}
+
+// The two pair products of one (pair of tiles, head): k = own . other^T over
+// N (8 k-steps) and s = fixed . moving^T over P (4 k-steps), [64 x 64] each
+__device__ __forceinline__ void pair_products(float (&k)[32], float (&s)[32],
+                                              const bf16* own, const bf16* other,
+                                              const bf16* fixed, const bf16* moving) {
+  wgmma_fence();
+  wgmma_ss_n64_first<0, 0>(k, kmajor<64>(own, 0), kmajor<64>(other, 0));
+#pragma unroll
+  for (int kk = 1; kk < 8; ++kk) wgmma_ss_n64<0, 0>(k, kmajor<64>(own, kk), kmajor<64>(other, kk), 1);
+  wgmma_ss_n64_first<0, 0>(s, kmajor<64>(fixed, 0), kmajor<64>(moving, 0));
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk) wgmma_ss_n64<0, 0>(s, kmajor<64>(fixed, kk), kmajor<64>(moving, kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// (B): du, dx, dB, s_j, x.du, the cum_j terms and their part of dA
+template <int NT>
+__global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
+    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+    const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
+    const __grid_constant__ CUtensorMap tdh, BwdParams p) {
+  using L = PairLayout<NT>;
+  constexpr int Q = NT * 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kRes + kNW * L::kPerWg);
+  float* reds = reinterpret_cast<float*>(bars + L::kBars);  // [kNW][4]
+  const PairItem it = pair_item<NT, false>(p);
+  if (it.t >= it.n_valid) return;  // no valid row: the whole block leaves at once
+  const int tid = threadIdx.x;
+  if (tid == 0) pair_init_barriers<NT>(bars);
+  __syncthreads();
+
+  const int warp_id = warp_index();
+  const int w = warp_id / 4, warp = warp_id % 4, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4, t = tid % 128;
+  const int rA = warp * 16 + g;  // this thread's rows rA and rA + 8 of tile j
+  const int j = it.t;
+  const PairBars bar(bars, w);
+  const bf16* Bj = reinterpret_cast<const bf16*>(base);
+  unsigned char* slots = base + L::kRes + w * L::kPerWg;
+  const int S = p.S, H = p.H;
+  // this warpgroup's heads, and its ring tiles: hi - lo a head
+  const int n_heads = (p.heads - w + kNW - 1) / kNW, n_ring = n_heads * (it.hi - it.lo);
+  if (t == 0) {
+    if (w == 0) load_resident(it, base, bar.res, &tb, &tc);
+    for (int n = 0; n < min(2, n_heads); ++n) load_head<NT>(it, p, w, n, slots, bar.hfull, &tx, &tdh);
+    for (int m = 0; m < min(kRing, n_ring); ++m) load_ring<NT>(it, w, m, slots, bar.rfull, &tdy);
+  }
+
+  float dB[64];  // dB_j [64 x N] of this warpgroup's heads
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dB[e] = 0.f;
+  mbar_wait(bar.res, 0);
+  int ring = 0;
+  for (int n = 0;; ++n) {
+    const int h = it.h_first + w + n * kNW;
+    if (h >= it.h_first + p.heads) break;
+    const int s = n & 1;
+    const unsigned char* hs = slots + s * L::kHead;
+    const bf16* Xj = reinterpret_cast<const bf16*>(hs);
+    const bf16* dH = reinterpret_cast<const bf16*>(hs + kTileBytes);  // dh_{c+1} [P][N]
+    const float* cw = reinterpret_cast<const float*>(hs + kTileBytes + kWideBytes);
+    const float* dw = cw + Q;
+    mbar_wait(bar.hfull + s, (n >> 1) & 1);
+    float cj[2], dtj[2];  // cum and dt of this thread's rows
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      cj[hf] = cw[j * 64 + rA + 8 * hf];
+      dtj[hf] = dw[j * 64 + rA + 8 * hf];
+    }
+
+    float du[32];            // du_j [64 x P]; the first k-step overwrites
+    float cs[2] = {0.f, 0.f};  // sum over i of dS_ij, this thread's part
+    for (int i = it.lo; i < it.hi; ++i, ++ring) {
+      const int r = ring % kRing;
+      const bf16* Dy = reinterpret_cast<const bf16*>(slots + 2 * L::kHead + r * kTileBytes);
+      const bf16* Ci = reinterpret_cast<const bf16*>(base + kWideBytes * (1 + i));
+      mbar_wait(bar.rfull + r, (ring / kRing) & 1);
+      // kt = B_j C_i^T and xy = x_j dy_i^T: element e is row j = rA + 8
+      // ((e / 2) % 2), column i = 8 (e / 4) + 2 qd + e % 2 of the tiles
+      float kt[32], xy[32];
+      fence_regs(du);
+      fence_regs(dB);
+      pair_products(kt, xy, Bj, Ci, Xj, Dy);
+      fence_regs(kt);
+      fence_regs(xy);
+      fence_regs(du);
+      fence_regs(dB);
+      // M^T = L o kt and G^T = L o (dt_j xy) as the bf16 A fragments of the
+      // four k-steps over i; dS = M o S summed over i in fp32
+      uint32_t ma[4][4], ga[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float mv[8], gv[8];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = 16 * kk + 8 * hh + 2 * qd;
+          const float2 ci = *reinterpret_cast<const float2*>(cw + i * 64 + col);
+#pragma unroll
+          for (int e2 = 0; e2 < 4; ++e2) {
+            const int e = 8 * kk + 4 * hh + e2, hf = e2 >> 1, odd = e2 & 1;
+            const float cum_i = odd ? ci.y : ci.x;
+            // mask first: exp(cum_i - cum_j) overflows above the diagonal
+            const bool seen = i > j || col + odd >= rA + 8 * hf;
+            const float lv = seen ? fast_exp2((cum_i - cj[hf]) * kLog2e) : 0.f;
+            const float sv = xy[e] * dtj[hf];
+            const float m = lv * kt[e];
+            cs[hf] = fmaf(m, sv, cs[hf]);
+            mv[4 * hh + e2] = m;
+            gv[4 * hh + e2] = lv * sv;
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          ma[kk][f] = pack_bf16(mv[2 * f], mv[2 * f + 1]);
+          ga[kk][f] = pack_bf16(gv[2 * f], gv[2 * f + 1]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(ma[kk]);
+        fence_regs(ga[kk]);
+      }
+      fence_regs(du);
+      fence_regs(dB);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64<1>(du, ma[kk], mnmajor<64>(Dy, kk), i > j || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128<1>(dB, ga[kk], mnmajor<64>(Ci, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(du);
+      fence_regs(dB);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(ma[kk]);
+        fence_regs(ga[kk]);
+      }
+      named_barrier(1 + w, 128);  // the warpgroup is done with ring slot r
+      if (t == 0 && ring + kRing < n_ring)
+        load_ring<NT>(it, w, ring + kRing, slots, bar.rfull, &tdy);
+    }
+
+    // from dh_{c+1}: di = B_j dh^T [64 x P], weighted by exp(cum_last - cum_j)
+    float di[32];
+    wgmma_fence();
+    wgmma_ss_n64_first<0, 0>(di, kmajor<64>(Bj, 0), kmajor<64>(dH, 0));
+#pragma unroll
+    for (int kk = 1; kk < 8; ++kk) wgmma_ss_n64<0, 0>(di, kmajor<64>(Bj, kk), kmajor<64>(dH, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(di);
+    fence_regs(du);
+    const float cum_last = cw[Q - 1];
+    const float wj[2] = {expf(cum_last - cj[0]), expf(cum_last - cj[1])};
+    float sj[2] = {0.f, 0.f}, xd[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int hf = (e / 2) % 2, col = 8 * (e / 4) + 2 * qd;
+      const float2 xv = tile_pair(Xj, rA + 8 * hf, col);
+      const float v0 = di[e] * wj[hf], v1 = di[e + 1] * wj[hf];
+      sj[hf] = fmaf(xv.x, v0, fmaf(xv.y, v1, sj[hf]));
+      du[e] += v0;
+      du[e + 1] += v1;
+      xd[hf] = fmaf(xv.x, du[e], fmaf(xv.y, du[e + 1], xd[hf]));
+    }
+    // dx_j = dt_j du_j
+    const long long row0 = (long long)it.b * S + it.c0 + j * 64;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = j * 64 + rA + 8 * hf;
+      if (row >= it.rows) continue;
+      bf16* dxr = static_cast<bf16*>(p.dx) + ((row0 + rA + 8 * hf) * H + h) * 64 + 2 * qd;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        const int e = 4 * nn + 2 * hf;
+        *reinterpret_cast<uint32_t*>(dxr + nn * 8) =
+            pack_bf16(du[e] * dtj[hf], du[e + 1] * dtj[hf]);
+      }
+    }
+    // per row: the cum_j terms of the pairs (- sum_i dS_ij), s_j and x_j.du_j;
+    // the tile's part of A dA, s_j (cum_last - cum_j)
+    float da = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float c_sum = quad_sum(cs[hf]);
+      const float s_j = quad_sum(sj[hf]) * dtj[hf];
+      const float x_du = quad_sum(xd[hf]);
+      const int row = j * 64 + rA + 8 * hf;
+      if (qd == 0 && row < it.rows) {
+        const long long o = (row0 + rA + 8 * hf) * H + h;
+        p.rdcum[o] = -c_sum;
+        p.rs[o] = s_j;
+        p.ddt[o] = x_du;
+        da = fmaf(s_j, cum_last - cj[hf], da);
+      }
+    }
+    da = warpgroup_sum(da, reds + 4 * w, 1 + w);
+    const long long bch = ((long long)it.b * p.nc + it.c) * H + h;
+    if (t == 0) p.da_tile[bch * NT + j] = da;
+
+    // dB_j += w dt_j x_j dh: x_j [64 x P] K-major, dh [P x N] MN-major
+    float xh[64];
+    fence_regs(dB);
+    wgmma_fence();
+    wgmma_ss_n128_first<0, 1>(xh, kmajor<64>(Xj, 0), mnmajor<64>(dH, 0));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk) wgmma_ss_n128<0, 1>(xh, kmajor<64>(Xj, kk), mnmajor<64>(dH, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(xh);
+    named_barrier(1 + w, 128);  // the warpgroup is done with head slot s
+    if (t == 0 && n + 2 < n_heads) load_head<NT>(it, p, w, n + 2, slots, bar.hfull, &tx, &tdh);
+    const float wd[2] = {wj[0] * dtj[0], wj[1] * dtj[1]};
+#pragma unroll
+    for (int e = 0; e < 64; ++e) dB[e] = fmaf(xh[e], wd[(e / 2) % 2], dB[e]);
+  }
+
+  // warpgroup 1 hands its dB to warpgroup 0 through its own (spent) slots;
+  // warpgroup 0 adds it to its own and writes the head tile's partial
+  float* xch = reinterpret_cast<float*>(base + L::kRes + L::kPerWg);
+  if (w == 1) {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) xch[e * 128 + t] = dB[e];
+  }
+  named_barrier(3, 256);
+  if (w == 1) return;
+  const int n_ht = H / p.heads;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = j * 64 + rA + 8 * hf;
+    if (row >= it.rows) continue;
+    float* out = p.db_part +
+                 (((long long)it.b * S + it.c0 + row) * n_ht + it.ht) * 128 + 2 * qd;
+#pragma unroll
+    for (int nn = 0; nn < 16; ++nn) {
+      const int e = 4 * nn + 2 * hf;
+      *reinterpret_cast<float2*>(out + nn * 8) =
+          make_float2(dB[e] + xch[e * 128 + t], dB[e + 1] + xch[(e + 1) * 128 + t]);
+    }
+  }
+}
+
+// (C): dC, the cum_i terms and the rest of dA
+template <int NT>
+__global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
+    const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUtensorMap tx,
+    const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tb,
+    const __grid_constant__ CUtensorMap th, BwdParams p) {
+  using L = PairLayout<NT>;
+  constexpr int Q = NT * 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kRes + kNW * L::kPerWg);
+  float* reds = reinterpret_cast<float*>(bars + L::kBars);  // [kNW][4]
+  const PairItem it = pair_item<NT, true>(p);
+  if (it.t >= it.n_valid) return;  // no valid row: the whole block leaves at once
+  const int tid = threadIdx.x;
+  if (tid == 0) pair_init_barriers<NT>(bars);
+  __syncthreads();
+
+  const int warp_id = warp_index();
+  const int w = warp_id / 4, warp = warp_id % 4, lane = tid % 32;
+  const int g = lane / 4, qd = lane % 4, t = tid % 128;
+  const int rA = warp * 16 + g;  // this thread's rows rA and rA + 8 of tile i
+  const int i = it.t;
+  const PairBars bar(bars, w);
+  const bf16* Ci = reinterpret_cast<const bf16*>(base);
+  unsigned char* slots = base + L::kRes + w * L::kPerWg;
+  const int S = p.S, H = p.H;
+  const int n_heads = (p.heads - w + kNW - 1) / kNW, n_ring = n_heads * (it.hi - it.lo);
+  if (t == 0) {
+    if (w == 0) load_resident(it, base, bar.res, &tc, &tb);
+    for (int n = 0; n < min(2, n_heads); ++n) load_head<NT>(it, p, w, n, slots, bar.hfull, &tdy, &th);
+    for (int m = 0; m < min(kRing, n_ring); ++m) load_ring<NT>(it, w, m, slots, bar.rfull, &tx);
+  }
+
+  float dC[64];  // dC_i [64 x N] of this warpgroup's heads
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dC[e] = 0.f;
+  mbar_wait(bar.res, 0);
+  int ring = 0;
+  for (int n = 0;; ++n) {
+    const int h = it.h_first + w + n * kNW;
+    if (h >= it.h_first + p.heads) break;
+    const int s = n & 1;
+    const unsigned char* hs = slots + s * L::kHead;
+    const bf16* Dy = reinterpret_cast<const bf16*>(hs);
+    const bf16* Hc = reinterpret_cast<const bf16*>(hs + kTileBytes);  // h_c [P][N]
+    const float* cw = reinterpret_cast<const float*>(hs + kTileBytes + kWideBytes);
+    const float* dw = cw + Q;
+    mbar_wait(bar.hfull + s, (n >> 1) & 1);
+    const float ci[2] = {cw[i * 64 + rA], cw[i * 64 + rA + 8]};
+
+    float rsum[2] = {0.f, 0.f};  // sum over j of dS_ij, this thread's part
+    float da = 0.f;              // the pairs' dS_ij (cum_i - cum_j)
+    for (int j = it.lo; j < it.hi; ++j, ++ring) {
+      const int r = ring % kRing;
+      const bf16* Xj = reinterpret_cast<const bf16*>(slots + 2 * L::kHead + r * kTileBytes);
+      const bf16* Bj = reinterpret_cast<const bf16*>(base + kWideBytes * (1 + j));
+      mbar_wait(bar.rfull + r, (ring / kRing) & 1);
+      // kk_ = C_i B_j^T and yx = dy_i x_j^T: element e is row i = rA + 8
+      // ((e / 2) % 2), column j = 8 (e / 4) + 2 qd + e % 2 of the tiles
+      float kv[32], yx[32];
+      fence_regs(dC);
+      pair_products(kv, yx, Ci, Bj, Dy, Xj);
+      fence_regs(kv);
+      fence_regs(yx);
+      fence_regs(dC);
+      // G = L o (yx dt_j) as the bf16 A fragments of the four k-steps over
+      // j; dS = L o kv o (yx dt_j) in fp32
+      uint32_t ga[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float gv[8];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = 16 * kk + 8 * hh + 2 * qd;
+          const float2 cjv = *reinterpret_cast<const float2*>(cw + j * 64 + col);
+          const float2 djv = *reinterpret_cast<const float2*>(dw + j * 64 + col);
+#pragma unroll
+          for (int e2 = 0; e2 < 4; ++e2) {
+            const int e = 8 * kk + 4 * hh + e2, hf = e2 >> 1, odd = e2 & 1;
+            const float diff = ci[hf] - (odd ? cjv.y : cjv.x);
+            // mask first: exp(cum_i - cum_j) overflows above the diagonal
+            const bool seen = j < i || col + odd <= rA + 8 * hf;
+            const float lv = seen ? fast_exp2(diff * kLog2e) : 0.f;
+            const float sv = yx[e] * (odd ? djv.y : djv.x);
+            const float ds = lv * kv[e] * sv;
+            rsum[hf] += ds;
+            da = fmaf(ds, diff, da);
+            gv[4 * hh + e2] = lv * sv;
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < 4; ++f) ga[kk][f] = pack_bf16(gv[2 * f], gv[2 * f + 1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(ga[kk]);
+      fence_regs(dC);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128<1>(dC, ga[kk], mnmajor<64>(Bj, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dC);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(ga[kk]);
+      named_barrier(1 + w, 128);  // the warpgroup is done with ring slot r
+      if (t == 0 && ring + kRing < n_ring)
+        load_ring<NT>(it, w, ring + kRing, slots, bar.rfull, &tx);
+    }
+
+    // from h_c: dC_inter = exp(cum_i) dy_i h_c; dy_i . y_inter_i is
+    // C_i . dC_inter_i
+    float yh[64];
+    wgmma_fence();
+    wgmma_ss_n128_first<0, 1>(yh, kmajor<64>(Dy, 0), mnmajor<64>(Hc, 0));
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk) wgmma_ss_n128<0, 1>(yh, kmajor<64>(Dy, kk), mnmajor<64>(Hc, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(yh);
+    fence_regs(dC);
+    named_barrier(1 + w, 128);  // the warpgroup is done with head slot s
+    if (t == 0 && n + 2 < n_heads) load_head<NT>(it, p, w, n + 2, slots, bar.hfull, &tdy, &th);
+    const float ei[2] = {expf(ci[0]), expf(ci[1])};
+    float yt[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 64; e += 2) {
+      const int hf = (e / 2) % 2, col = 8 * (e / 4) + 2 * qd;
+      const float2 cv = tile_pair(Ci, rA + 8 * hf, col);
+      const float v0 = yh[e] * ei[hf], v1 = yh[e + 1] * ei[hf];
+      yt[hf] = fmaf(cv.x, v0, fmaf(cv.y, v1, yt[hf]));
+      dC[e] += v0;
+      dC[e + 1] += v1;
+    }
+    // per row: add the cum_i terms (sum_j dS_ij, dy_i . y_inter_i) to the
+    // column owner's; the tile's part of A dA: the pairs' and
+    // (dy_i . y_inter_i) cum_i, added to the column owner's
+    const long long row0 = (long long)it.b * S + it.c0 + i * 64;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float r_sum = quad_sum(rsum[hf]);
+      const float y_t = quad_sum(yt[hf]);
+      const int row = i * 64 + rA + 8 * hf;
+      if (qd == 0 && row < it.rows) {
+        const long long o = (row0 + rA + 8 * hf) * H + h;
+        p.rdcum[o] += r_sum + y_t;
+        da = fmaf(y_t, ci[hf], da);
+      }
+    }
+    da = warpgroup_sum(da, reds + 4 * w, 1 + w);
+    const long long bch = ((long long)it.b * p.nc + it.c) * H + h;
+    if (t == 0) p.da_tile[bch * NT + i] += da;
+  }
+
+  // warpgroup 1 hands its dC to warpgroup 0, as in (B)
+  float* xch = reinterpret_cast<float*>(base + L::kRes + L::kPerWg);
+  if (w == 1) {
+#pragma unroll
+    for (int e = 0; e < 64; ++e) xch[e * 128 + t] = dC[e];
+  }
+  named_barrier(3, 256);
+  if (w == 1) return;
+  const int n_ht = H / p.heads;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = i * 64 + rA + 8 * hf;
+    if (row >= it.rows) continue;
+    float* out = p.dc_part +
+                 (((long long)it.b * S + it.c0 + row) * n_ht + it.ht) * 128 + 2 * qd;
+#pragma unroll
+    for (int nn = 0; nn < 16; ++nn) {
+      const int e = 4 * nn + 2 * hf;
+      *reinterpret_cast<float2*>(out + nn * 8) =
+          make_float2(dC[e] + xch[e * 128 + t], dC[e + 1] + xch[(e + 1) * 128 + t]);
+    }
+  }
+}
+
+// x and dy [B, S, H, 64], B and C [B, S, G, 128] as 4-D maps (columns, head
+// or group, sequence, batch), boxes of 64 columns x 64 rows; h_c and dh_{c+1}
+// [B nc H 64, 128] as 2-D maps, boxes of 64 x 64.
+struct BwdMaps {
+  CUtensorMap x, dy, b, c, hb, dhb;
+};
+
+bool bwd_maps(const BwdParams& p, BwdMaps* m) {
+  const cuuint32_t box4[4] = {64, 1, 64, 1}, box2[2] = {64, 64};
+  const cuuint64_t B = p.batch, S = p.S, H = p.H, G = p.G;
+  const cuuint64_t dx[4] = {64, H, S, B};
+  const cuuint64_t sx[3] = {64 * 2, H * 64 * 2, S * H * 64 * 2};
+  const cuuint64_t dbc[4] = {128, G, S, B};
+  const cuuint64_t sbc[3] = {128 * 2, G * 128 * 2, S * G * 128 * 2};
+  const cuuint64_t dh[2] = {128, B * p.nc * H * 64};
+  const cuuint64_t sh[1] = {128 * 2};
+  return make_map_bf16(&m->x, p.x, 4, dx, sx, box4) &&
+         make_map_bf16(&m->dy, p.dy, 4, dx, sx, box4) &&
+         make_map_bf16(&m->b, p.b, 4, dbc, sbc, box4) &&
+         make_map_bf16(&m->c, p.c, 4, dbc, sbc, box4) &&
+         make_map_bf16(&m->hb, p.hb, 2, dh, sh, box2) &&
+         make_map_bf16(&m->dhb, p.dhb, 2, dh, sh, box2);
+}
+
+template <int NT>
+cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
+  constexpr size_t smem_a = states_smem_bytes(), smem_bc = PairLayout<NT>::kBytes;
+  static const cudaError_t attr_a = cudaFuncSetAttribute(
+      ssd_bwd_states_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_a));
+  static const cudaError_t attr_b = cudaFuncSetAttribute(
+      ssd_bwd_dxdb_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bc));
+  static const cudaError_t attr_c = cudaFuncSetAttribute(
+      ssd_bwd_dc_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bc));
+  if (attr_a != cudaSuccess) return attr_a;
+  if (attr_b != cudaSuccess) return attr_b;
+  if (attr_c != cudaSuccess) return attr_c;
+  BwdMaps m;
+  if (!bwd_maps(p, &m)) return cudaErrorInvalidValue;
+  ssd_bwd_states_wgmma<NT><<<dim3(p.H, p.batch), 256, smem_a, stream>>>(m.x, m.b, m.dy, m.c, p);
+  cudaError_t e = counted(cudaGetLastError(), kStatesWgmma);
+  if (e != cudaSuccess) return e;
+  // the column owner first: the row owner adds to what it writes
+  const unsigned grid = static_cast<unsigned>(NT) * p.batch * p.nc * (p.H / p.heads);
+  ssd_bwd_dxdb_wgmma<NT><<<grid, 128 * kNW, smem_bc, stream>>>(m.x, m.dy, m.b, m.c, m.dhb, p);
+  e = counted(cudaGetLastError(), kDxdbWgmma);
+  if (e != cudaSuccess) return e;
+  ssd_bwd_dc_wgmma<NT><<<grid, 128 * kNW, smem_bc, stream>>>(m.dy, m.x, m.c, m.b, m.hb, p);
+  return counted(cudaGetLastError(), kDcWgmma);
+}
+
 // Heads a block of pass 3 serves: the largest of 8, 4, 2, 1 that divides the
 // heads of a group (they share B and C, and their dB and dC add up).
 int heads_per_block(int H, int G) {
@@ -853,9 +1793,10 @@ int heads_per_block(int H, int G) {
 }
 
 // The fp32 scratch: its size in floats and, where `p` is given, its parts
-// (carved out of p->cum onwards, in this order).
+// (carved out of p->cum onwards, in this order).  ssd_bwd_wgmma keeps dt
+// beside cum and the two states in bf16.
 long long carve(int batch, int S, int H, int G, int P, int N, int Q,
-                BwdParams* p) {
+                int variant, BwdParams* p) {
   const long long nc = (S + Q - 1) / Q, bnh = batch * nc * H;
   const long long rows = (long long)batch * S;
   const long long tiles = H / heads_per_block(H, G);
@@ -866,9 +1807,11 @@ long long carve(int batch, int S, int H, int G, int P, int N, int Q,
     total += n;
     return at;
   };
-  float* cum = take(bnh * Q);
-  float* st = take(bnh * P * N);
-  float* dst = take(bnh * P * N);
+  const int bf16_states = variant == kBwdWgmma ? 2 : 1;
+  const int cum_ld = variant == kBwdWgmma ? 2 * Q : Q;
+  float* cum = take(bnh * cum_ld);
+  float* st = take(bnh * P * N / bf16_states);
+  float* dst = take(bnh * P * N / bf16_states);
   float* hdh = take(bnh);
   float* rdcum = take(rows * H);
   float* rs = take(rows * H);
@@ -878,9 +1821,22 @@ long long carve(int batch, int S, int H, int G, int P, int N, int Q,
   float* dc_part = take(rows * tiles * N);
   if (p) {
     p->cum = cum; p->st = st; p->dst = dst; p->hdh = hdh; p->rdcum = rdcum;
+    p->hb = st; p->dhb = dst; p->cum_ld = cum_ld;
     p->rs = rs; p->da_tile = da_tile; p->dA_part = dA_part; p->db_part = db_part; p->dc_part = dc_part;
   }
   return total;
+}
+
+// ssd_bwd_dt, then ssd_bwd_reduce: the last two passes of either variant
+template <typename Tout>
+cudaError_t launch_tail(const BwdParams& p, cudaStream_t stream) {
+  ssd_bwd_dt<<<dim3((p.H + 31) / 32, p.nc, p.batch), 32 * (p.Q / kDtRows), 0, stream>>>(p);
+  cudaError_t e = counted(cudaGetLastError(), kDt);
+  if (e != cudaSuccess) return e;
+  const long long n5 = (long long)p.batch * p.S * p.G * p.N;
+  ssd_bwd_reduce<Tout><<<static_cast<unsigned>((n5 + kThreads - 1) / kThreads),
+                         kThreads, 0, stream>>>(p);
+  return counted(cudaGetLastError(), kReduce);
 }
 
 template <typename Tin>
@@ -919,46 +1875,38 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
     ssd_bwd_chunk_grads<Tin, 32><<<grid3, kThreads, smem3, stream>>>(p);
   e = counted(cudaGetLastError(), kChunkGrads);
   if (e != cudaSuccess) return e;
-
-  const long long n4 = (long long)p.batch * p.nc * p.H;
-  ssd_bwd_dt<<<static_cast<unsigned>((n4 + 127) / 128), 128, 0, stream>>>(p);
-  e = counted(cudaGetLastError(), kDt);
-  if (e != cudaSuccess) return e;
-
-  const long long n5 = (long long)p.batch * p.S * p.G * p.N;
-  ssd_bwd_reduce<Tin><<<static_cast<unsigned>((n5 + kThreads - 1) / kThreads),
-                        kThreads, 0, stream>>>(p);
-  return counted(cudaGetLastError(), kReduce);
+  return launch_tail<Tin>(p, stream);
 }
 
-// The codes of kernel.VARIANT_CODES_BWD (a test holds the two to each other);
-// the wrapper's variant_bwd() chooses.
-enum SsdBwdVariant {
-  kBwdFp32Pipes = 0,  // ssd_bwd_simt
-};
-
-bool takes(int batch, int S, int H, int G, int P, int N, int Q) {
-  return batch >= 1 && S >= 1 && (Q == 32 || Q == 64 || Q == 128 || Q == 256) &&
-         P >= 4 && P % 4 == 0 && P <= kMaxP && N >= 4 && N % 4 == 0 &&
-         N <= kMaxN && G >= 1 && H >= G && H % G == 0;
+// Whether `variant` has kernels for these sizes (dtype aside): the fp32 pipes
+// every size the wrapper takes, wgmma only P 64, N 128, chunk 64 and up.
+bool takes(int batch, int S, int H, int G, int P, int N, int Q, int variant) {
+  const bool sizes = batch >= 1 && S >= 1 && (Q == 32 || Q == 64 || Q == 128 || Q == 256) &&
+                     P >= 4 && P % 4 == 0 && P <= kMaxP && N >= 4 && N % 4 == 0 &&
+                     N <= kMaxN && G >= 1 && H >= G && H % G == 0;
+  if (variant == kBwdWgmma) return sizes && P == 64 && N == 128 && Q >= 64;
+  return sizes && variant == kBwdFp32Pipes;
 }
 
 }  // namespace
 
-// The fp32 scratch the backward needs, in floats (the wrapper allocates it);
-// -1 for sizes it does not take.
+// The fp32 scratch the backward's `variant` needs, in floats (the wrapper
+// allocates it); -1 for sizes it does not take.
 extern "C" long long ssd_bwd_scratch_floats(int batch, int S, int H, int G,
-                                            int P, int N, int Q) {
-  if (!takes(batch, S, H, G, P, N, Q)) return -1;
-  return carve(batch, S, H, G, P, N, Q, nullptr);
+                                            int P, int N, int Q, int variant) {
+  if (!takes(batch, S, H, G, P, N, Q, variant)) return -1;
+  return carve(batch, S, H, G, P, N, Q, variant, nullptr);
 }
 
 // dtype of x, B, C, dy and of dx, dB, dC: 0 = float32, 1 = bfloat16; dt, A,
 // the states, ddt and dA are float32.  Every tensor is contiguous.  h0 and
 // dhT may be null (a zero state, a zero gradient); dh0 is always written.
-// `scratch` holds ssd_bwd_scratch_floats() floats.  `variant` is the
+// `scratch` holds ssd_bwd_scratch_floats() floats for `variant`, the
 // wrapper's choice (kernel.variant_bwd): 0 = the five kernels on the fp32
-// pipes, the only one.  Returns the launches' cudaError_t as an int.
+// pipes; 1 = the three wgmma kernels and the last two, bf16 at P 64, N 128,
+// Q >= 64 only, with x, B, C and dy on 16-byte boundaries (TMA; the wrapper
+// checks).  Returns the launches' cudaError_t as an int
+// (cudaErrorInvalidValue for a variant that cannot take these inputs).
 extern "C" int ssd_bwd(const void* x, const float* dt, const float* A,
                        const void* b, const void* c, const float* h0,
                        const void* dy, const float* dhT, void* dx, float* ddt,
@@ -966,8 +1914,8 @@ extern "C" int ssd_bwd(const void* x, const float* dt, const float* A,
                        int batch, int S, int H, int G, int P, int N, int Q,
                        int dtype, int variant, void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (variant != kBwdFp32Pipes || scratch == nullptr ||
-      !takes(batch, S, H, G, P, N, Q))
+  if (scratch == nullptr || !takes(batch, S, H, G, P, N, Q, variant) ||
+      (variant == kBwdWgmma && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
   p.x = x; p.dt = dt; p.A = A; p.b = b; p.c = c; p.h0 = h0; p.dy = dy;
@@ -977,8 +1925,18 @@ extern "C" int ssd_bwd(const void* x, const float* dt, const float* A,
   p.nc = (S + Q - 1) / Q;
   p.heads = heads_per_block(H, G);
   p.cum = scratch;
-  carve(batch, S, H, G, P, N, Q, &p);
+  carve(batch, S, H, G, P, N, Q, variant, &p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kBwdWgmma) {
+    cudaError_t e;
+    switch (Q) {
+      case 64: e = launch_wgmma<1>(p, s); break;
+      case 128: e = launch_wgmma<2>(p, s); break;
+      default: e = launch_wgmma<4>(p, s); break;
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(launch_tail<__nv_bfloat16>(p, s));
+  }
   return static_cast<int>(dtype ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
 }
 

@@ -4,10 +4,13 @@ The sources ``csrc/ssd_fwd.cu`` and ``csrc/ssd_bwd.cu`` are compiled at first
 use by ``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded with
 ``ctypes``), one library each.  Which kernels run is fixed by (dtype, P, N,
 chunk) alone (``variant`` and ``variant_bwd``, which the wrappers pass to the
-C functions): in the forward, bf16 at the serving shape (P 64, N 128, chunk
-64 and up) runs two wgmma + TMA kernels one after the other (the state pass,
-then the outputs), everything else one kernel on the fp32 pipes; the
-backward runs five kernels on the fp32 pipes for every input it takes.
+C functions): bf16 at the serving and training shape (P 64, N 128, chunk 64
+and up) runs on wgmma + TMA, the forward in two kernels (the state pass,
+then the outputs), the backward in five (the two state recurrences, the
+column and the row owners of the chunk pairs, then two short passes);
+everything else runs on the fp32 pipes, the forward in one kernel, the
+backward in five.  The backward's fp32-pipe variant also runs where a caller
+names it (``variant=``), to be timed against the rule's.
 """
 from __future__ import annotations
 
@@ -34,10 +37,13 @@ VARIANT_CODES = {"ssd_fwd_kernel": 0, "ssd_wgmma": 1}
 VARIANT_KERNELS = {"ssd_wgmma": ("ssd_state_wgmma", "ssd_out_wgmma"),
                    "ssd_fwd_kernel": ("ssd_fwd_kernel",)}
 # the backward's variants (SsdBwdVariant in ssd_bwd.cu) and their kernels
-VARIANT_CODES_BWD = {"ssd_bwd_simt": 0}
-VARIANT_KERNELS_BWD = {"ssd_bwd_simt": (
-    "ssd_bwd_chunk_state", "ssd_bwd_state_scan", "ssd_bwd_chunk_grads",
-    "ssd_bwd_dt", "ssd_bwd_reduce")}
+VARIANT_CODES_BWD = {"ssd_bwd_simt": 0, "ssd_bwd_wgmma": 1}
+VARIANT_KERNELS_BWD = {
+    "ssd_bwd_simt": ("ssd_bwd_chunk_state", "ssd_bwd_state_scan",
+                     "ssd_bwd_chunk_grads", "ssd_bwd_dt", "ssd_bwd_reduce"),
+    "ssd_bwd_wgmma": ("ssd_bwd_states_wgmma", "ssd_bwd_dxdb_wgmma",
+                      "ssd_bwd_dc_wgmma", "ssd_bwd_dt", "ssd_bwd_reduce"),
+}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_bwd: Optional[ctypes.CDLL] = None
@@ -71,7 +77,7 @@ def load_bwd() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.ssd_bwd.argtypes = [ptr] * 15 + [i32] * 9 + [ptr]
         lib.ssd_bwd.restype = i32
-        lib.ssd_bwd_scratch_floats.argtypes = [i32] * 7
+        lib.ssd_bwd_scratch_floats.argtypes = [i32] * 8
         lib.ssd_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.ssd_bwd_error_string.argtypes = [i32]
         lib.ssd_bwd_error_string.restype = ctypes.c_char_p
@@ -93,6 +99,13 @@ def takes(head_dim: int, state: int, chunk: int) -> bool:
             and head_dim % 4 == 0 and 0 < state <= MAX_STATE and state % 4 == 0)
 
 
+def _tensor_cores(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> bool:
+    """The domain of the wgmma + TMA variants, forward and backward: bf16 at
+    P 64, N 128, chunk 64, 128 or 256."""
+    return (dtype == torch.bfloat16 and head_dim == 64 and state == 128
+            and chunk >= 64)
+
+
 def variant(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
     """The kernels that run for this dtype and (P, N, chunk): ``ssd_wgmma`` (bf16 at P 64, N 128, chunk 64, 128 or
     256: two kernels, ``VARIANT_KERNELS``) or ``ssd_fwd_kernel`` (everything
@@ -100,20 +113,38 @@ def variant(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
     if dtype not in DTYPE_CODES or not takes(head_dim, state, chunk):
         raise ValueError(f"no kernel for {dtype} at (P={head_dim}, N={state}, "
                          f"chunk={chunk})")
-    if (dtype == torch.bfloat16 and head_dim == 64 and state == 128
-            and chunk >= 64):
+    if _tensor_cores(dtype, head_dim, state, chunk):
         return "ssd_wgmma"
     return "ssd_fwd_kernel"
 
 
 def variant_bwd(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
-    """The backward that runs for this dtype and (P, N, chunk):
-    ``ssd_bwd_simt``, five kernels on the fp32 pipes, for every input the
-    forward takes."""
+    """The backward that runs for this dtype and (P, N, chunk), by the
+    forward's rule: ``ssd_bwd_wgmma`` (bf16 at P 64, N 128, chunk 64, 128 or
+    256: wgmma + TMA) or ``ssd_bwd_simt`` (everything else, and every float32
+    input: the fp32 pipes); five CUDA kernels each
+    (``VARIANT_KERNELS_BWD``)."""
     if dtype not in DTYPE_CODES or not takes(head_dim, state, chunk):
         raise ValueError(f"no kernel for {dtype} at (P={head_dim}, N={state}, "
                          f"chunk={chunk})")
+    if _tensor_cores(dtype, head_dim, state, chunk):
+        return "ssd_bwd_wgmma"
     return "ssd_bwd_simt"
+
+
+def _chosen_bwd(name: Optional[str], dtype: torch.dtype, head_dim: int,
+                state: int, chunk: int) -> str:
+    """``name``, or variant_bwd's choice where it is None; raises where the
+    named variant has no kernel for these inputs (``ssd_bwd_simt`` takes
+    every input variant_bwd takes, ``ssd_bwd_wgmma`` only its own domain)."""
+    rule = variant_bwd(dtype, head_dim, state, chunk)
+    if name is None:
+        return rule
+    if name not in VARIANT_CODES_BWD or (
+            name == "ssd_bwd_wgmma" and rule != name):
+        raise ValueError(f"variant {name!r} has no kernel for {dtype} at "
+                         f"(P={head_dim}, N={state}, chunk={chunk})")
+    return name
 
 
 def _check(x, dt, A, B_, C, init_state, chunk) -> Tuple[int, ...]:
@@ -213,11 +244,15 @@ def ssd_scan_bwd(
     chunk: int,
     init_state: Optional[torch.Tensor] = None,      # [B, H, P, N] fp32
     d_final_state: Optional[torch.Tensor] = None,   # [B, H, P, N] fp32
+    variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launch the backward on CUDA tensors: (dx, ddt, dA, dB, dC,
     d_init_state), dx, dB and dC in x's type, the rest fp32;
     ``d_init_state`` is the gradient of the initial state (of a zero one
-    when ``init_state`` is None).  Raises on anything it does not take."""
+    when ``init_state`` is None).  ``variant`` names the kernels to run
+    instead of ``variant_bwd``'s choice (``ssd_bwd_simt`` where the rule
+    picks ``ssd_bwd_wgmma``, to time the two).  Raises on anything it does
+    not take."""
     Bsz, S, H, P, G, N = _check(x, dt, A, B_, C, init_state, chunk)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must have x's shape "
@@ -232,7 +267,12 @@ def ssd_scan_bwd(
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in extra):
         raise ValueError("dy and d_final_state must be contiguous")
-    kind = variant_bwd(x.dtype, P, N, chunk)
+    kind = _chosen_bwd(variant, x.dtype, P, N, chunk)
+    if kind == "ssd_bwd_wgmma" and any(t.data_ptr() % 16 for t in (x, B_, C, dy)):
+        # TMA takes only 16-byte aligned bases (the rows of x, dy, B and C are
+        # 128 and 256 bytes)
+        raise ValueError("bfloat16 x, dy, B and C must start on a 16-byte "
+                         "boundary (TMA)")
     if not x.is_cuda:
         raise ValueError(f"tensors must be CUDA tensors, got {x.device}")
     lib = load_bwd()
@@ -241,7 +281,8 @@ def ssd_scan_bwd(
     ddt, dA = torch.empty((Bsz, S, H), **f32), torch.empty((H,), **f32)
     d_init = torch.empty((Bsz, H, P, N), **f32)
     scratch = torch.empty(
-        (lib.ssd_bwd_scratch_floats(Bsz, S, H, G, P, N, chunk),), **f32)
+        (lib.ssd_bwd_scratch_floats(Bsz, S, H, G, P, N, chunk,
+                                    VARIANT_CODES_BWD[kind]),), **f32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_bwd(

@@ -134,6 +134,7 @@ def ssd_chunked_bwd_ref(
     d_final_state: Optional[torch.Tensor],        # [B, H, P, N] or None (0)
     *,
     chunk: int,
+    round_operands: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """The gradient of ``ssd_chunked_ref``: (dx, ddt, dA, dB, dC,
     d_init_state), fp32 inside (float64 for float64 inputs, to measure the
@@ -160,7 +161,15 @@ def ssd_chunked_bwd_ref(
     5. dB and dC summed over each group's heads.
 
     A ragged last chunk is padded with dt = 0 rows, as the forward pads, and
-    the padded rows' gradients are dropped."""
+    the padded rows' gradients are dropped.
+
+    ``round_operands`` rounds to bf16 exactly what the wgmma variant of the
+    backward kernel (``ssd_bwd_wgmma``) rounds, each where it is the operand
+    of a bf16 product and nowhere else: M in du, G in dC and dB, h_c in dC's
+    term from the state and in exp(cum_last) <h_c, dh_{c+1}>, dh_{c+1} in
+    du's and dB's terms from the state.  The chunks' terms of the two
+    recurrences stay in the inside type (the kernel keeps some 16 bits of
+    each, in two bf16 parts), as do dS and every sum."""
     Bsz, S, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     rep = H // G
@@ -173,6 +182,11 @@ def ssd_chunked_bwd_ref(
     Q = chunk
 
     f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
+
+    def op(t: torch.Tensor) -> torch.Tensor:
+        """t as the operand of a product: bf16 under round_operands."""
+        return t.to(torch.bfloat16).to(f32) if round_operands else t
+
     xc = x.reshape(Bsz, nc, Q, H, P).to(f32)
     dyc = dy.reshape(Bsz, nc, Q, H, P).to(f32)
     dtc = dt.reshape(Bsz, nc, Q, H).to(f32)
@@ -206,7 +220,7 @@ def ssd_chunked_bwd_ref(
     for c in reversed(range(nc)):
         dh_after[c] = dh
         decay = torch.exp(cum_last[:, c])                       # [B,H]
-        h_dh[c] = decay * (h_before[c] * dh).sum((-2, -1))
+        h_dh[c] = decay * (op(h_before[c]) * dh).sum((-2, -1))
         dh = dh * decay[:, :, None, None] + d_local[:, c]
     d_init = dh
     h_before = torch.stack(h_before, dim=1)                     # [B,nc,H,P,N]
@@ -222,12 +236,13 @@ def ssd_chunked_bwd_ref(
     M = Lmat * CB
     Gm = Lmat * YU
     dS = M * YU
-    du_inter = to_end[..., None] * torch.einsum("bcjhn,bchpn->bcjhp", Bh, dh_after)
-    du = torch.einsum("bchij,bcihp->bcjhp", M, dyc) + du_inter
-    dC_inter = from_start[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, h_before)
-    dC = torch.einsum("bchij,bcjhn->bcihn", Gm, Bh) + dC_inter
-    dB = (torch.einsum("bchij,bcihn->bcjhn", Gm, Ch)
-          + to_end[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", u, dh_after))
+    du_inter = to_end[..., None] * torch.einsum("bcjhn,bchpn->bcjhp", Bh, op(dh_after))
+    du = torch.einsum("bchij,bcihp->bcjhp", op(M), dyc) + du_inter
+    dC_inter = from_start[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc,
+                                                    op(h_before))
+    dC = torch.einsum("bchij,bcjhn->bcihn", op(Gm), Bh) + dC_inter
+    dB = (torch.einsum("bchij,bcihn->bcjhn", op(Gm), Ch)
+          + to_end[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", u, op(dh_after)))
     # the decays: dS_ij moves cum_i up and cum_j down; dy_i . y_inter_i is
     # C_i . dC_inter_i; s_j = exp(cum_last - cum_j) <u_j (x) B_j, dh_{c+1}>
     # moves cum_j down and cum_last up, as does exp(cum_last) <h_c, dh_{c+1}>

@@ -10,7 +10,9 @@ Inputs are made with numpy from a seed and handed to both sides; everything
 is float32.  Gradients are held at 1e-4 relative to max|ref| (sums in another
 order through a chunked scan of up to 256 rows, and through two layers).
 The CUDA kernels themselves run only on the card, where chip_smoke.py holds
-them against the same plain version.
+them against the same plain version; here the plain version's
+``round_operands`` (what the wgmma variant rounds to bf16) is held against
+float64 at the bf16 tolerance, before any run on the card.
 """
 import math
 import re
@@ -118,6 +120,37 @@ def test_bwd_ref_dA_holds_float64_at_chunk_256():
     assert all(r.dtype == torch.float64 for r in ref)
     for name, g, r in zip(("dx", "ddt", "dA", "dB", "dC"), got, ref):
         assert rel_err(g, r.float()) < GRAD_TOL / 4, name
+
+
+@pytest.mark.parametrize("shape,with_init", [
+    ((1, 700, 4, 64, 1, 128, 256), True),     # ragged, an initial state
+    ((2, 512, 4, 64, 2, 128, 256), False),    # two groups
+    ((1, 384, 8, 64, 1, 128, 128), True)])
+def test_bwd_rounded_operands_hold_float64(shape, with_init):
+    """What ssd_bwd_wgmma rounds to bf16 (M, G, h_c and dh_{c+1} as product
+    operands; round_operands of the plain version) keeps every gradient, the
+    initial state's with a final-state gradient included, within the bf16
+    tolerance of 2e-2 of float64 on the same bf16 inputs, at mamba2-1.3b's
+    P, N and chunk; dA, taken term by term, too.  The rounding is real: dx,
+    ddt, dB and dC move from the unrounded fp32 ones by more than 5e-4."""
+    B, S, H, P, G, N, chunk = shape
+    arrs, h0, dy, dT = _scan_inputs(B, S, H, P, G, N, seed=sum(shape))
+    ins = [to_torch(a) for a in arrs]
+    for i in (0, 3, 4):          # x, B, C in bf16, as the kernel reads them
+        ins[i] = ins[i].to(torch.bfloat16).float()
+    dy_t = to_torch(dy).to(torch.bfloat16).float()
+    h0_t = to_torch(h0) if with_init else None
+    dT_t = to_torch(dT) if with_init else None
+    got = ssd_chunked_bwd_ref(*ins, h0_t, dy_t, dT_t, chunk=chunk, round_operands=True)
+    plain = ssd_chunked_bwd_ref(*ins, h0_t, dy_t, dT_t, chunk=chunk)
+    ref = ssd_chunked_bwd_ref(*(t.double() for t in ins),
+                              None if h0_t is None else h0_t.double(), dy_t.double(),
+                              None if dT_t is None else dT_t.double(), chunk=chunk)
+    names = ("dx", "ddt", "dA", "dB", "dC", "d_init")[:6 if with_init else 5]
+    for name, g, q, r in zip(names, got, plain, ref):
+        assert rel_err(g, r.float()) < 2e-2, name
+        assert rel_err(q, r.float()) < GRAD_TOL, name
+    assert all(rel_err(got[i], plain[i]) > 5e-4 for i in (0, 1, 3, 4))   # dx, ddt, dB, dC
 
 
 def test_bwd_ref_keeps_the_input_types():
@@ -242,19 +275,75 @@ def test_bwd_variant_codes_and_kernels_are_the_c_functions():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_variant_takes_what_the_forward_takes(dtype):
+    """The backward's rule is the forward's: where the forward runs on
+    wgmma (bf16 at P 64, N 128, chunk 64 and up) so does the backward, and
+    every other input the forward takes runs on the fp32 pipes."""
+    by_forward = {"ssd_wgmma": "ssd_bwd_wgmma", "ssd_fwd_kernel": "ssd_bwd_simt"}
     for arch in PORTED_ARCHS:
         cfg = get_config(arch)
         if cfg.family != "ssm":
             continue
         shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
-        assert kssd.variant_bwd(dtype, *shape) == "ssd_bwd_simt"
-    for shape in ((16, 8, 32), (64, 128, 64), (4, 4, 256)):
+        assert kssd.variant_bwd(dtype, *shape) == (
+            "ssd_bwd_wgmma" if dtype == torch.bfloat16 else "ssd_bwd_simt")
+    for shape in ((16, 8, 32), (64, 128, 64), (4, 4, 256), (64, 128, 32),
+                  (64, 64, 256), (32, 128, 128)):
+        assert kssd.variant_bwd(dtype, *shape) == by_forward[kssd.variant(dtype, *shape)]
         assert kssd.variant_bwd(dtype, *shape) in kssd.VARIANT_CODES_BWD
     for shape in ((64, 128, 48), (66, 128, 256), (64, 132, 256)):
         with pytest.raises(ValueError, match="no kernel"):
             kssd.variant_bwd(dtype, *shape)
     with pytest.raises(ValueError, match="no kernel"):
         kssd.variant_bwd(torch.float16, 64, 128, 256)
+
+
+@pytest.mark.parametrize("P,N,chunk,expected", [
+    (64, 128, 64, "ssd_bwd_wgmma"), (64, 128, 128, "ssd_bwd_wgmma"),
+    (64, 128, 256, "ssd_bwd_wgmma"), (64, 128, 32, "ssd_bwd_simt"),
+    (32, 128, 256, "ssd_bwd_simt"), (64, 64, 256, "ssd_bwd_simt"),
+    (64, 124, 256, "ssd_bwd_simt"), (16, 8, 32, "ssd_bwd_simt")])
+def test_bwd_variant_by_shape(P, N, chunk, expected):
+    """ssd_bwd_wgmma exactly on bf16 at P 64, N 128, chunk 64 and up (zamba2's
+    N 64 among the rest); float32 always on the fp32 pipes; five CUDA
+    kernels each, the last two shared."""
+    assert kssd.variant_bwd(torch.bfloat16, P, N, chunk) == expected
+    assert kssd.variant_bwd(torch.float32, P, N, chunk) == "ssd_bwd_simt"
+    assert kssd.VARIANT_KERNELS_BWD["ssd_bwd_wgmma"] == (
+        "ssd_bwd_states_wgmma", "ssd_bwd_dxdb_wgmma", "ssd_bwd_dc_wgmma",
+        "ssd_bwd_dt", "ssd_bwd_reduce")
+    assert kssd.VARIANT_KERNELS_BWD["ssd_bwd_simt"][-2:] == ("ssd_bwd_dt", "ssd_bwd_reduce")
+
+
+def _bwd_args(dtype, P=64, N=128, chunk=64):
+    """CPU tensors the backward's wrapper checks; the device check comes last."""
+    B, S, H, G = 1, 64, 2, 1
+    x, dy = torch.zeros((B, S, H, P), dtype=dtype), torch.zeros((B, S, H, P), dtype=dtype)
+    Bm, Cm = torch.zeros((B, S, G, N), dtype=dtype), torch.zeros((B, S, G, N), dtype=dtype)
+    return (x, torch.zeros((B, S, H)), torch.zeros((H,)), Bm, Cm, dy), {"chunk": chunk}
+
+
+@pytest.mark.parametrize("name,dtype,shape", [
+    ("ssd_bwd_simt", torch.bfloat16, (64, 128, 256)),
+    ("ssd_bwd_simt", torch.bfloat16, (64, 128, 64)),
+    ("ssd_bwd_wgmma", torch.bfloat16, (64, 128, 128)),
+    ("ssd_bwd_simt", torch.float32, (16, 8, 32))])
+def test_bwd_named_variant_that_takes_reaches_the_device_check(name, dtype, shape):
+    """``variant=`` overrides variant_bwd with a kernel that takes the input:
+    the fp32-pipe variant takes what the rule gives wgmma (to time the two)."""
+    args, kw = _bwd_args(dtype, *shape)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kssd.ssd_scan_bwd(*args, variant=name, **kw)
+
+
+@pytest.mark.parametrize("name,dtype,shape", [
+    ("ssd_bwd_wgmma", torch.float32, (64, 128, 256)),
+    ("ssd_bwd_wgmma", torch.bfloat16, (64, 128, 32)),
+    ("ssd_bwd_wgmma", torch.bfloat16, (64, 64, 256)),
+    ("ssd_bwd_none", torch.bfloat16, (64, 128, 256))])
+def test_bwd_named_variant_that_does_not_take_raises(name, dtype, shape):
+    args, kw = _bwd_args(dtype, *shape)
+    with pytest.raises(ValueError, match="has no kernel"):
+        kssd.ssd_scan_bwd(*args, variant=name, **kw)
 
 
 def test_bwd_source_is_its_own_library():

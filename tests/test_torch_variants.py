@@ -66,11 +66,13 @@ def test_attention_variant_refuses_what_no_kernel_takes():
 @pytest.mark.parametrize("arch", SSM_ARCHS)
 def test_ssd_variant_of_every_ported_config(arch):
     """mamba2-1.3b's (P 64, N 128, chunk 256) in bf16 runs the two wgmma
-    kernels; in float32 the fp32-pipe kernel."""
+    kernels forward and the wgmma backward; in float32 the fp32-pipe ones."""
     cfg = get_config(arch)
     shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
     assert ssd.variant(torch.bfloat16, *shape) == "ssd_wgmma"
     assert ssd.variant(torch.float32, *shape) == "ssd_fwd_kernel"
+    assert ssd.variant_bwd(torch.bfloat16, *shape) == "ssd_bwd_wgmma"
+    assert ssd.variant_bwd(torch.float32, *shape) == "ssd_bwd_simt"
     assert ssd.VARIANT_KERNELS["ssd_wgmma"] == ("ssd_state_wgmma", "ssd_out_wgmma")
     assert ssd.VARIANT_KERNELS["ssd_fwd_kernel"] == ("ssd_fwd_kernel",)
 
@@ -190,6 +192,31 @@ def test_ssd_wrapper_refuses_what_tma_cannot_take(which):
     t[which] = _offset(tuple(t[which].shape), bf)
     with pytest.raises(ValueError, match="16-byte boundary"):
         ssd.ssd_scan_fwd(t["x"], dt, A, t["B"], t["C"], chunk=64)
+
+
+@pytest.mark.parametrize("which", ["x", "dy", "B", "C"])
+def test_ssd_backward_refuses_what_tma_cannot_take(which):
+    """The backward's wgmma variant loads x, dy, B and C by TMA: a base off a
+    16-byte boundary raises, on CPU tensors, before the device check; named
+    instead, the fp32-pipe variant reads element by element and takes it."""
+    Bsz, S, H, P, G, N = 1, 64, 2, 64, 1, 128
+    bf = torch.bfloat16
+    t = {"x": torch.zeros((Bsz, S, H, P), dtype=bf),
+         "dy": torch.zeros((Bsz, S, H, P), dtype=bf),
+         "B": torch.zeros((Bsz, S, G, N), dtype=bf),
+         "C": torch.zeros((Bsz, S, G, N), dtype=bf)}
+    dt, A = torch.zeros((Bsz, S, H)), torch.zeros((H,))
+
+    def call(**kw):
+        return ssd.ssd_scan_bwd(t["x"], dt, A, t["B"], t["C"], t["dy"], chunk=64, **kw)
+    assert ssd.variant_bwd(bf, P, N, 64) == "ssd_bwd_wgmma"
+    with pytest.raises(ValueError, match="CUDA tensors"):   # aligned: next check
+        call()
+    t[which] = _offset(tuple(t[which].shape), bf)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        call()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        call(variant="ssd_bwd_simt")
 
 
 def test_fp32_pipes_need_no_tma_alignment():
