@@ -9,12 +9,15 @@ scan forward and backward) from the sources in this checkout, holds each
 against its plain PyTorch version on the card (naming the CUDA kernels that
 each call launched, as the C functions count them), times the attention
 forward and backward in turns against their earlier variants and PyTorch's
-fused backends and the SSD backward against its fp32-pipe variant, serves tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full
-width (random weights from a seed: batch 8 x prompt 1024, 64 generated
-tokens) through the port's prefill and decode steps, trains tinyllama-1.1b,
-stablelm-3b and mamba2-1.3b at full width and depth (batch 8 x 1024, a few
-AdamW steps through the port's train step), holds the kernel paths against
-the dense paths (fp32, and bf16 for the gradients), and checks the results.
+fused backends and the SSD backward against its fp32-pipe variant, and each
+kernel at the full-width shapes of Qwen2-VL, Whisper and Zamba2; serves
+tinyllama-1.1b, stablelm-3b, mamba2-1.3b, qwen2-vl-2b, zamba2-1.2b and
+whisper-large-v3 at full width (random weights from a seed: batch 8 x prompt
+1024, 64 generated tokens; Whisper 1500 frames of random embeddings and a
+decoder prompt of 375) through the port's `launch.serve.generate`; trains all six at full width and depth (batch 8 x 1024; Whisper 8
+x 375 over 1500 frames; a few AdamW steps through the port's train step),
+holds the kernel paths against the dense paths (fp32, and bf16 for the
+gradients), and checks the results.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device it prints no result and exits with code 1.
@@ -55,6 +58,9 @@ SWEEP_SHAPES = [
     (1, 4, 2, 257, 130, 80),      # neither length a multiple of 128
     (1, 16, 1, 300, 300, 32),     # MQA, a group of 16
     (1, 4, 2, 257, 257, 32),
+    (1, 12, 2, 300, 300, 128),    # Qwen2-VL's group of 6 at head dim 128, ragged
+    (1, 4, 4, 375, 1500, 64),     # Whisper's cross-attention (non-causal)
+    (1, 4, 4, 1500, 1500, 64),    # Whisper's encoder length
 ]
 SWEEP_MASKS = [(True, None), (False, None), (True, 48)]
 # relative to max|plain|, for attention's output and for the SSD scan's y and
@@ -85,6 +91,9 @@ BWD_SHAPES = [
     (1, 16, 1, 300, 300, 128),
     (1, 16, 1, 300, 300, 80),
     (1, 16, 1, 300, 300, 32),
+    (1, 12, 2, 300, 300, 128),    # Qwen2-VL's group of 6, ragged
+    (1, 4, 4, 375, 1500, 64),     # Whisper's cross-attention lengths
+    (1, 4, 4, 1500, 1500, 64),    # Whisper's encoder length
 ]
 BWD_MASKS = [(True, None), (False, None), (True, 48), (False, 16)]
 # dq, dk, dv relative to max|plain|: fp32 sums in another order than the
@@ -119,17 +128,29 @@ SSD_SHAPES = [
     # three heads in a group (a head tile of one: the backward's second
     # warpgroup idle), the last chunk short of its second row tile
     (1, 300, 3, 64, 1, 128, 128),
+    # Zamba2's N 64 at chunk 256, ragged: the fp32-pipe kernels in bf16 too
+    (1, 600, 8, 64, 1, 64, 256),
 ]
-SSD_INIT_STATE = {1, 5, 7}         # cases also run from a random initial state
+SSD_INIT_STATE = {1, 5, 7, 8}      # cases also run from a random initial state
 # (and, for the backward, with a gradient of the final state)
 
 # K1 at llama3.2-3b's full width (head dim 128, 24 / 8 heads), timed beside the
 # main paths' shapes
 K1_D128_SHAPE = (8, 24, 8, 1024, 1024, 128)
+# the later families' full-width shapes, timed too: Qwen2-VL's attention (a
+# group of 6 at head dim 128), Whisper's cross-attention (375 decoder rows
+# over 1500 frames, non-causal), Zamba2's scan (B, S, H, P, G, N; chunk 256:
+# N 64, which the wgmma variants do not take)
+QWEN2_VL_ATTN_SHAPE = (8, 12, 2, 1024, 1024, 128)
+WHISPER_CROSS_SHAPE = (8, 20, 20, 375, 1500, 64)
+ZAMBA2_SSD_SHAPE = (8, 1024, 64, 64, 1, 64)
 
-# The main paths: each arch served at batch 8 x prompt 1024, 64 generated tokens.
-SERVE_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
+# The main paths: each arch served at batch 8 x prompt 1024, 64 generated
+# tokens; Whisper's decoder over 1500 frames with a prompt of 1500 // 4
+SERVE_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b", "qwen2-vl-2b",
+               "zamba2-1.2b", "whisper-large-v3")
 BATCH, PROMPT_LEN, GEN = 8, 1024, 64
+WHISPER_FRAMES = 1500
 SEED = 0
 # decode(token S) after prefill(S) against prefill(S + 1), in bf16 through 22
 # or 48 layers: the two sides round at different places (attention: bf16
@@ -139,7 +160,10 @@ DECODE_TOL = 5e-2
 PARITY_TOL = 2e-4     # fp32, kernel path against dense path, 2 layers
 # full-width configs for that: the main paths', and the one whose head dim
 # (80), partial rotary and layer norm tinyllama does not have
-PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
+PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b", "qwen2-vl-2b",
+                "zamba2-1.2b", "whisper-large-v3")
+# Qwen2-VL's parity also takes one loss with vision embeddings prepended
+VISION_TOKENS = 256
 
 # The training paths: tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full
 # width and depth,
@@ -150,9 +174,15 @@ PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
 # every weight by about lr in its gradient's sign, and raises the loss on
 # both attention paths and with fp32 weights too; larger lrs without warm-up
 # swing wider (scripts/train_lr_sweep.py), so these steps take a small one
-TRAIN_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b")
+TRAIN_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b", "qwen2-vl-2b",
+               "zamba2-1.2b", "whisper-large-v3")
 TRAIN_STEPS = 3
 TRAIN_OPT = dict(lr=1e-5, warmup_steps=0)
+# qwen2-vl-2b's and zamba2-1.2b's losses swing at lr 1e-5 (12.12, 9.75,
+# 11.30, 10.29 and 10.77, 8.68, 8.83, 8.12) on both attention paths alike
+# and with fp32 weights too; at 3e-6 they fall step after step
+# (scripts/train_lr_sweep.py --arch ...), so their steps take that
+TRAIN_LR = {"qwen2-vl-2b": 3e-6, "zamba2-1.2b": 3e-6}
 # Adam's update lr·m̂/(√v̂ + eps) is ill-conditioned where the gradient (after
 # the clip) is within a hundred eps of zero: a difference at rounding level
 # there moves an element by up to 2 lr.  The on-card parity of the updated
@@ -183,6 +213,78 @@ def cuda_kernel_counts() -> dict:
 
 def cuda_kernels_since(before: dict) -> dict:
     return {k: n - before[k] for k, n in cuda_kernel_counts().items() if n != before[k]}
+
+
+def op_calls(cfg) -> dict:
+    """Calls of each kernel-backed op in one forward of `cfg` (a prefill, or
+    the forward of a loss), as (calls inside a layer that remat recomputes,
+    calls outside one): attention in every dense and Qwen2-VL layer, in
+    every Whisper encoder layer and twice in every decoder layer (its own and
+    the cross-attention); the scan in every Mamba layer; Zamba2's shared
+    block, outside the checkpoint, once each application."""
+    L = cfg.num_layers
+    attn, scan = (0, 0), (0, 0)
+    if cfg.family in ("dense", "vlm"):
+        attn = (L, 0)
+    elif cfg.family == "ssm":
+        scan = (L, 0)
+    elif cfg.family == "hybrid":
+        attn, scan = (0, -(-L // cfg.shared_attn_period)), (L, 0)
+    elif cfg.family == "encdec":
+        attn = (cfg.enc_layers + 2 * cfg.dec_layers, 0)
+    return {"attention": attn, "scan": scan}
+
+
+def variant_kernels(cfg, op: str) -> tuple:
+    """The CUDA kernels of the rule's forward and backward variants of `op`
+    ("flash_attention" or "ssd_scan") for `cfg`'s type and shapes."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as kssd
+    dt = cfg.compute_dtype
+    if op == "flash_attention":
+        hd = cfg.resolved_head_dim
+        return (fa.VARIANT_KERNELS[fa.variant(dt, hd)],
+                fa.VARIANT_KERNELS_BWD[fa.variant_bwd(dt, hd)])
+    shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
+    return (kssd.VARIANT_KERNELS[kssd.variant(dt, *shape)],
+            kssd.VARIANT_KERNELS_BWD[kssd.variant_bwd(dt, *shape)])
+
+
+def expected_launches(cfg, train_steps: int = 0) -> tuple:
+    """The launches of each op (`flash_attention_fwd` ...) and of each CUDA
+    kernel that one prefill of `cfg` (train_steps 0) or `train_steps` train
+    steps under remat "full" make: in a step each forward call inside a
+    checkpointed layer runs twice (the forward, and the recompute), each
+    backward once.  The CUDA kernels are those of the rule's variants."""
+    ops, kernels = {}, {}
+    calls = op_calls(cfg)
+    for op, (inner, outer) in (("flash_attention", calls["attention"]),
+                               ("ssd_scan", calls["scan"])):
+        fwd = (2 * inner + outer) * train_steps if train_steps else inner + outer
+        bwd = (inner + outer) * train_steps
+        ops[op + "_fwd"], ops[op + "_bwd"] = fwd, bwd
+        if not fwd:
+            continue
+        fwd_kernels, bwd_kernels = variant_kernels(cfg, op)
+        for names, n in ((fwd_kernels, fwd), (bwd_kernels, bwd)):
+            for name in names if n else ():
+                kernels[name] = kernels.get(name, 0) + n
+    return ops, kernels
+
+
+def op_counts() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    return {"flash_attention_fwd": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.bwd_launches,
+            "ssd_scan_fwd": ssd.launches, "ssd_scan_bwd": ssd.bwd_launches}
+
+
+def reset_op_counts() -> None:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    ssd.launches = ssd.bwd_launches = 0
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -395,38 +497,38 @@ def phase_kernels() -> dict:
         if rel_err(out, ref) >= TOL[dtype] or float(out[:, :, 60:].abs().max()) != 0.0:
             raise AssertionError("rows that see no key must give exact 0")
 
-    def measure(shape, must_beat_earlier=False):
-        """bf16 causal at a full-width shape: error, and the kernel's time in
-        turns with its earlier variant (mma.sync, by `variant=`) and the
-        library call, each the better of two readings, beside the plain
-        version's time and the bound."""
+    def measure(shape, must_beat_earlier=False, causal=True):
+        """bf16 at a full-width shape (causal unless told otherwise): error,
+        and the kernel's time in turns with its earlier variant (mma.sync,
+        by `variant=`) and the library call, each the better of two
+        readings, beside the plain version's time and the bound."""
         B, Hq, Hkv, Sq, Skv, D = shape
         q = make((B, Hq, Sq, D), torch.bfloat16)
         k = make((B, Hkv, Skv, D), torch.bfloat16)
         v = make((B, Hkv, Skv, D), torch.bfloat16)
         out, ran, n_kernels = launched_variant(
-            lambda: flash_attention(q, k, v, causal=True), fa,
+            lambda: flash_attention(q, k, v, causal=causal), fa,
             fa.variant(torch.bfloat16, D))
-        ref = attention_ref(q, k, v, causal=True)
+        ref = attention_ref(q, k, v, causal=causal)
         err = rel_err(out, ref)
         abs_err = float((out.float() - ref.float()).abs().max())
         if not err < TOL[torch.bfloat16] or ran != "fa_fwd_wgmma":
             raise AssertionError(f"shape {shape} disagrees: rel_err {err}, {ran}")
         earlier = "fa_fwd_bf16_mma"
-        kernel = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        kernel = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
         mma = lambda: fa.flash_attention_fwd(  # noqa: E731
-            q, k, v, causal=True, variant=earlier)
+            q, k, v, causal=causal, variant=earlier)
         earlier_err = rel_err(mma(), ref)
-        library = library_attention(q, k, v, True)
+        library = library_attention(q, k, v, causal)
         lib_err = rel_err(library(), ref)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True), 5, 1)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal), 5, 1)
         ms, order = in_turns([("kernel", kernel), ("earlier", mma),
                               ("library", library)], 50)
         kernel_ms = min(ms["kernel"])
         if must_beat_earlier and not kernel_ms < min(ms["earlier"]):
             raise AssertionError(f"{ran} is not faster than {earlier}: {order}")
-        bound_ms, bound_by = attention_bound_ms(q, k, v, True, None)
-        return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+        bound_ms, bound_by = attention_bound_ms(q, k, v, causal, None)
+        return {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
                 "variant": ran, "cuda_kernels_per_call": n_kernels,
                 "max_rel_err": err, "max_abs_err": abs_err,
                 "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
@@ -445,12 +547,15 @@ def phase_kernels() -> dict:
     d80 = measure(STABLELM_ATTN_SHAPE, must_beat_earlier=True)
     d128 = measure(K1_D128_SHAPE)
     d32 = measure(D32_SHAPE)
+    # Qwen2-VL's (a group of 6) and Whisper's cross-attention (non-causal)
+    later = {"qwen2-vl-2b": measure(QWEN2_VL_ATTN_SHAPE),
+             "whisper-large-v3 cross": measure(WHISPER_CROSS_SHAPE, causal=False)}
     emit("kernels", name="flash_attention_fwd", sweep=cases,
          max_rel_err_fp32=max(c["rel_err"] for c in cases if c["dtype"] == "float32"),
          max_rel_err_bf16=max(c["rel_err"] for c in cases if c["dtype"] == "bfloat16"),
          main_path_shape=main, head_dim_80=d80, head_dim_128=d128,
-         head_dim_32_no_config_at_full_width=d32)
-    return main, d80
+         head_dim_32_no_config_at_full_width=d32, later_families=later)
+    return main, d80, later
 
 
 def attention_bwd_bound_ms(q, k, v, causal, window):
@@ -748,7 +853,8 @@ def phase_ssd_kernels() -> dict:
                               "init_state": with_init, "y_rel_err": err_y,
                               "state_rel_err": err_h, "tol": TOL[dtype]})
                 if not (err_y < TOL[dtype] and err_h < TOL[dtype]
-                        and torch.isfinite(y).all() and torch.isfinite(hT).all()):
+                        and torch.isfinite(y).all() and torch.isfinite(hT).all()
+                        and (N != 64 or ran == "ssd_fwd_kernel")):
                     raise AssertionError(f"ssd disagrees: {cases[-1]}")
 
     # the main path's shape: one mamba2-1.3b layer's scan at batch 8 x 1024
@@ -773,6 +879,30 @@ def phase_ssd_kernels() -> dict:
             "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # Zamba2's layer at batch 8 x 1024: N 64, on the fp32-pipe kernel in
+    # bf16; the kernel and the plain version in turns
+    B, S, H, P, G, N = ZAMBA2_SSD_SHAPE
+    args, _ = make(B, S, H, P, G, N, torch.bfloat16)
+    (y, hT), ran, n_kernels = launched_variant(
+        lambda: ssd(*args, chunk=chunk, return_state=True), kssd,
+        kssd.variant(torch.bfloat16, P, N, chunk))
+    ry, rh = ssd_chunked_ref(*args, chunk=chunk)
+    err, err_h = rel_err(y, ry), rel_err(hT, rh)
+    if not (err < TOL[torch.bfloat16] and err_h < TOL[torch.bfloat16]
+            and ran == "ssd_fwd_kernel"):
+        raise AssertionError(f"Zamba2's shape disagrees: y {err}, state {err_h}, {ran}")
+    ms, order = in_turns([("kernel", lambda: ssd(*args, chunk=chunk, return_state=True)),
+                          ("plain", lambda: ssd_chunked_ref(*args, chunk=chunk))], 10)
+    bound_ms, bound_by = ssd_bound_ms(*args, chunk)
+    zamba2 = {"shape": [B, S, H, P, G, N], "chunk": chunk, "dtype": "bfloat16",
+              "variant": ran, "cuda_kernels_per_call": n_kernels,
+              "max_rel_err": err, "state_rel_err": err_h,
+              "max_abs_err": float((y.float() - ry.float()).abs().max()),
+              "tol": TOL[torch.bfloat16], "kernel_ms": min(ms["kernel"]),
+              "plain_ms": min(ms["plain"]), "ms_in_turns": order, "library_ms": None,
+              "bound_ms": bound_ms, "bound_by": bound_by}
+    main["later_families"] = {"zamba2-1.2b": zamba2}
     emit("kernels", name="ssd_scan_fwd", sweep=cases,
          max_rel_err_fp32=max(c["y_rel_err"] for c in cases if c["dtype"] == "float32"),
          max_rel_err_bf16=max(c["y_rel_err"] for c in cases if c["dtype"] == "bfloat16"),
@@ -836,7 +966,8 @@ def phase_ssd_bwd_kernels() -> dict:
                 "tol": BWD_TOL[dtype],
                 "equal_run_to_run": all(torch.equal(a, b) for a, b in zip(grads, again))}
         if not (max(errs.values()) < BWD_TOL[dtype] and case["equal_run_to_run"]
-                and all(bool(torch.isfinite(g).all()) for g in grads)):
+                and all(bool(torch.isfinite(g).all()) for g in grads)
+                and (N != 64 or ran == "ssd_bwd_simt")):
             raise AssertionError(f"ssd_scan_bwd disagrees: {case}")
         return case, args, bwd, plain, grads, ref, n_kernels
 
@@ -879,6 +1010,21 @@ def phase_ssd_bwd_kernels() -> dict:
                                        if k.endswith("_rel_err")),
             "earlier_cuda_kernels": device_split(simt, 3),
             "speedup_over_earlier": earlier_ms / kernel_ms}
+
+    # Zamba2's training shape: N 64, so the rule's variant is ssd_bwd_simt
+    # in bf16 too; it and the plain version in turns
+    case, args, bwd, plain, grads, ref, n_kernels = check(
+        ZAMBA2_SSD_SHAPE, chunk, torch.bfloat16, False)
+    ms, order = in_turns([("kernel", bwd), ("plain", plain)], 3)
+    bound_ms, bound_by = ssd_bwd_bound_ms(*args, chunk)
+    main["later_families"] = {"zamba2-1.2b": {
+        **case, "cuda_kernels_per_call": n_kernels,
+        "max_abs_err": max(float((g.float() - r.float()).abs().max())
+                           for g, r in zip(grads[:5], ref[:5])),
+        "kernel_ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
+        "ms_in_turns": order, "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "cuda_kernels": device_split(bwd, 3)}}
     emit("kernels", name="ssd_scan_bwd", sweep=cases,
          max_rel_err_fp32=max(max(v for k, v in c.items() if k.endswith("_rel_err"))
                               for c in cases if c["dtype"] == "float32"),
@@ -888,12 +1034,22 @@ def phase_ssd_bwd_kernels() -> dict:
     return main
 
 
+def serve_inputs(cfg, gen: torch.Generator) -> tuple:
+    """Prompts [BATCH, S] for `cfg` on the card, and what else its prefill
+    takes: Whisper's 1500 frames of embeddings (random, from the seed; its
+    frontend is a stub) and a decoder prompt of 1500 // 4."""
+    if cfg.family != "encdec":
+        return torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
+                             device="cuda"), {}
+    frames = torch.randn((BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(cfg.compute_dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, WHISPER_FRAMES // 4),
+                            generator=gen, device="cuda")
+    return prompts, {"enc_embeds": frames}
+
+
 def phase_serve(arch: str) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.ssd_scan import kernel as kssd
-    from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.launch.serve import generate, pad_cache_to
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.common import get_model, param_count
@@ -903,119 +1059,146 @@ def phase_serve(arch: str) -> dict:
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = model.init(cfg, gen, "cuda")
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
-                            generator=gen, device="cuda")
-    generate(cfg, params, prompts, 4)          # warm-up: library handles, caches
+    prompts, extra = serve_inputs(cfg, gen)
+    S = prompts.shape[1]
+    generate(cfg, params, prompts, 4, extra=extra)   # warm-up: library handles, caches
 
-    # the main path, with every kernel's count set to 0 just before it: the
-    # arch's own kernel runs once per layer in the prefill, the other never;
-    # the CUDA kernels of the variant that the rule names, once each a call
+    # the main path, with every kernel's count set to 0 just before it: each
+    # kernel-backed op once per call in the prefill (`op_calls`), the other
+    # ops never; the CUDA kernels of the variant that the rule names, once
+    # each a call
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention.bwd_launches = 0
-    ssd.launches = ssd.bwd_launches = 0
+    reset_op_counts()
     before = cuda_kernel_counts()
-    tokens, t_prefill, t_decode = generate(cfg, params, prompts, GEN)
-    counts = {"flash_attention_fwd": flash_attention.launches,
-              "flash_attention_bwd": flash_attention.bwd_launches,
-              "ssd_scan_fwd": ssd.launches, "ssd_scan_bwd": ssd.bwd_launches}
+    tokens, t_prefill, t_decode = generate(cfg, params, prompts, GEN, extra=extra)
+    counts = op_counts()
     cuda_kernels = cuda_kernels_since(before)
     peak = torch.cuda.max_memory_allocated()
-    if cfg.family == "ssm":
-        own = "ssd_scan_fwd"
-        own_kernels = kssd.VARIANT_KERNELS[kssd.variant(
-            cfg.compute_dtype, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)]
-    else:
-        own = "flash_attention_fwd"
-        own_kernels = fa.VARIANT_KERNELS[fa.variant(cfg.compute_dtype,
-                                                    cfg.resolved_head_dim)]
-    launches = counts[own]
-    if launches != cfg.num_layers or sum(counts.values()) != launches or \
-            cuda_kernels != {k: cfg.num_layers for k in own_kernels}:
+    want_counts, want_kernels = expected_launches(cfg)
+    if counts != want_counts or cuda_kernels != want_kernels:
         raise AssertionError(f"kernel launches {counts} ({cuda_kernels}) in one "
-                             f"prefill of {cfg.num_layers} layers of {arch}")
+                             f"prefill of {arch}, expected {want_counts} "
+                             f"({want_kernels})")
     if tokens.shape != (BATCH, GEN) or int(tokens.min()) < 0 \
             or int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError("generated tokens out of range")
 
     # decode of token S after prefill(S) against the last position of prefill(S + 1)
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    full, _ = prefill(params, {"tokens": prompts})
-    part, cache = prefill(params, {"tokens": prompts[:, :-1]})
-    cache = pad_cache_to(cache, PROMPT_LEN + 4, cfg.window)
+    full, _ = prefill(params, {"tokens": prompts, **extra})
+    part, cache = prefill(params, {"tokens": prompts[:, :-1], **extra})
+    cache = pad_cache_to(cache, S + 4, cfg.window)
     step, cache = decode(params, cache, {"tokens": prompts[:, -1:]})
     if not (torch.isfinite(full).all() and torch.isfinite(step).all()):
         raise AssertionError("logits are not finite")
     if full.shape != (BATCH, 1, cfg.vocab_size) or full.dtype != torch.float32:
         raise AssertionError(f"logits {tuple(full.shape)} {full.dtype}")
     decode_err = rel_err(step, full)
-    if not decode_err < DECODE_TOL or cache["len"] != PROMPT_LEN:
+    if not decode_err < DECODE_TOL or cache["len"] != S:
         raise AssertionError(f"decode after prefill disagrees: {decode_err}")
 
     steps = GEN - 1
-    result = {"arch": arch, "params": param_count(params),
-              "dtype": "bfloat16", "batch": BATCH, "prompt_len": PROMPT_LEN,
+    launched = {k: n for k, n in counts.items() if n}
+    result = {"arch": arch, "family": cfg.family, "params": param_count(params),
+              "dtype": "bfloat16", "batch": BATCH, "prompt_len": S,
               "gen": GEN, "prefill_ms": t_prefill * 1e3,
               "decode_ms_per_token": t_decode * 1e3 / steps,
               "decode_tokens_per_s": BATCH * steps / t_decode,
-              "peak_memory_bytes": peak, "kernel": own,
-              "kernel_launches": launches, "launches_by_kernel": counts,
+              "peak_memory_bytes": peak, "kernels": sorted(launched),
+              "kernel_launches": launched, "launches_by_kernel": counts,
               "cuda_kernel_launches": cuda_kernels,
               "decode_vs_prefill_rel_err": decode_err, "decode_tol": DECODE_TOL}
+    if extra:
+        result["encoder_frames"] = WHISPER_FRAMES
     emit("serve", **result)
     return result
 
 
 def phase_parity_on_card(arch: str) -> None:
+    """`arch` at full width, 2 layers (Whisper: 2 encoder and 2 decoder
+    layers), fp32: the kernel path against the dense path, prefill logits,
+    hidden states and every cache tensor; Qwen2-VL also one loss with vision
+    embeddings prepended, Whisper the encoder's output."""
     from repro_torch.configs import get_config
     from repro_torch.models.common import get_model
     from repro_torch.testing import rel_err
 
     cfg = get_config(arch).replace(num_layers=2, param_dtype=torch.float32,
                                    compute_dtype=torch.float32)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(enc_layers=2, dec_layers=2)
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = model.init(cfg, gen, "cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
-                           generator=gen, device="cuda")
+    tokens, extra = serve_inputs(cfg, gen)
     dense = cfg.replace(attn_impl="dense")
-    logits_k, cache_k = model.prefill(cfg, params, {"tokens": tokens})
-    logits_d, cache_d = model.prefill(dense, params, {"tokens": tokens})
-    hidden_err = rel_err(model.forward(cfg, params, tokens),
-                         model.forward(dense, params, tokens))
-    logits_err = rel_err(logits_k, logits_d)
-    cache_err = max(rel_err(val, cache_d[key]) for key, val in cache_k.items()
-                    if isinstance(val, torch.Tensor))
+    batch = {"tokens": tokens, **extra}
+    logits_k, cache_k = model.prefill(cfg, params, batch)
+    logits_d, cache_d = model.prefill(dense, params, batch)
+    errs = {"logits_rel_err": rel_err(logits_k, logits_d),
+            "cache_rel_err": max(rel_err(val, cache_d[key]) for key, val in cache_k.items()
+                                 if isinstance(val, torch.Tensor))}
+    with torch.no_grad():
+        if cfg.family == "encdec":
+            from repro_torch.models.whisper import encode
+            mem_k = encode(cfg, params, extra["enc_embeds"])
+            mem_d = encode(dense, params, extra["enc_embeds"])
+            errs["encoder_rel_err"] = rel_err(mem_k, mem_d)
+            errs["hidden_rel_err"] = rel_err(model.decode_fwd(cfg, params, tokens, mem_k),
+                                             model.decode_fwd(dense, params, tokens, mem_d))
+        else:
+            errs["hidden_rel_err"] = rel_err(model.forward(cfg, params, tokens),
+                                             model.forward(dense, params, tokens))
+        if cfg.family == "vlm":
+            # 256 vision embeddings before 768 tokens: 1024 positions, the
+            # kernel path once a layer
+            text = PROMPT_LEN - VISION_TOKENS
+            vision = {"tokens": tokens[:, :text], "labels": tokens[:, 1:text + 1],
+                      "vision_embeds": 0.02 * torch.randn(
+                          (BATCH, VISION_TOKENS, cfg.d_model), generator=gen,
+                          device="cuda")}
+            reset_op_counts()
+            loss_k, _ = model.loss(cfg, params, vision)
+            vision_launches = op_counts()["flash_attention_fwd"]
+            loss_d, _ = model.loss(dense, params, vision)
+            errs["vision_loss_rel_err"] = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
+            if vision_launches != cfg.num_layers:
+                raise AssertionError(f"the vision loss launched K1 {vision_launches} times")
     head_dim = cfg.ssm_headdim if cfg.family == "ssm" else cfg.resolved_head_dim
     emit("parity_on_card", arch=arch, head_dim=head_dim, layers=2,
-         dtype="float32", logits_rel_err=logits_err,
-         hidden_rel_err=hidden_err, cache_rel_err=cache_err, tol=PARITY_TOL)
-    if not max(logits_err, hidden_err, cache_err) < PARITY_TOL:
+         dtype="float32", **errs, tol=PARITY_TOL)
+    if not max(errs.values()) < PARITY_TOL:
         raise AssertionError(f"{arch}: kernel path and dense path disagree "
-                             "on the card")
+                             f"on the card: {errs}")
 
 
 def _train_batch(cfg) -> dict:
-    """The first batch of the port's synthetic pipeline, on the card."""
+    """The first batch of the port's synthetic pipeline, on the card;
+    Whisper's at 1500 // 4 tokens, with 1500 frames of random embeddings."""
     from repro_torch.data import DataConfig, ShardedDataset, make_batch_iter
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=PROMPT_LEN,
+    seq = WHISPER_FRAMES // 4 if cfg.family == "encdec" else PROMPT_LEN
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                       global_batch=BATCH, num_shards=64)
     batch = next(make_batch_iter(ShardedDataset(data, num_hosts=1), hosts=[0]))
-    return {k: torch.from_numpy(v).long().cuda() for k, v in batch.items()}
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in batch.items()}
+    if cfg.family == "encdec":
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+        batch["enc_embeds"] = torch.randn((BATCH, WHISPER_FRAMES, cfg.d_model),
+                                          generator=gen, device="cuda").to(cfg.compute_dtype)
+    return batch
 
 
 def phase_train(arch: str) -> dict:
     """`arch` trains at full width and depth: a warm-up step, then
     TRAIN_STEPS timed steps of the port's train step, with every kernel's
-    count set to 0 just before them.  Each layer's own forward kernel runs
-    twice a layer a step (the forward, and again under the full remat's
-    recompute) and its backward once, the other family's never: K1 and K1b
-    for a dense arch, K2 and K2b for Mamba-2; each through the CUDA kernels
-    of the variant that the rule names."""
+    count set to 0 just before them.  Each forward kernel inside a
+    checkpointed layer runs twice a step (the forward, and again under the
+    full remat's recompute), one outside (Zamba2's shared block) once, each
+    backward once (`expected_launches`); the ops the arch does not have
+    never; each through the CUDA kernels of the variant that the rule
+    names."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.ssd_scan import kernel as kssd
-    from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.common import get_model, param_count, tree_leaves
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -1027,7 +1210,8 @@ def phase_train(arch: str) -> dict:
     params = get_model(cfg).init(cfg, gen, "cuda")
     opt = adamw_init(params)
     batch = _train_batch(cfg)
-    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+    opt_cfg = AdamWConfig(**{**TRAIN_OPT, "lr": TRAIN_LR.get(arch, TRAIN_OPT["lr"])})
+    step = make_train_step(cfg, opt_cfg)
     t0 = time.perf_counter()
     params, opt, metrics = step(params, opt, batch)          # warm-up
     losses = [float(metrics["loss"])]
@@ -1035,8 +1219,7 @@ def phase_train(arch: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention.bwd_launches = 0
-    ssd.launches = ssd.bwd_launches = 0
+    reset_op_counts()
     fa.flash_attention_bwd.copies = 0
     before = cuda_kernel_counts()
     times = []
@@ -1045,33 +1228,15 @@ def phase_train(arch: str) -> dict:
         params, opt, metrics = step(params, opt, batch)
         losses.append(float(metrics["loss"]))               # waits for the step
         times.append(time.perf_counter() - t0)
-    counts = {"flash_attention_fwd": flash_attention.launches,
-              "flash_attention_bwd": flash_attention.bwd_launches,
-              "ssd_scan_fwd": ssd.launches, "ssd_scan_bwd": ssd.bwd_launches}
+    counts = op_counts()
     cuda_kernels = cuda_kernels_since(before)
     bwd_copies = fa.flash_attention_bwd.copies
     peak = torch.cuda.max_memory_allocated()
-    fwd_n, bwd_n = 2 * cfg.num_layers * TRAIN_STEPS, cfg.num_layers * TRAIN_STEPS
-    if cfg.family == "ssm":
-        own = ("ssd_scan_fwd", "ssd_scan_bwd")
-        shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
-        fwd_kernels = kssd.VARIANT_KERNELS[kssd.variant(cfg.compute_dtype, *shape)]
-        bwd_kernels = kssd.VARIANT_KERNELS_BWD[kssd.variant_bwd(cfg.compute_dtype, *shape)]
-    else:
-        own = ("flash_attention_fwd", "flash_attention_bwd")
-        hd = cfg.resolved_head_dim
-        fwd_kernels = fa.VARIANT_KERNELS[fa.variant(cfg.compute_dtype, hd)]
-        bwd_kernels = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(cfg.compute_dtype, hd)]
-    expected = {k: 0 for k in counts}
-    expected.update({own[0]: fwd_n, own[1]: bwd_n})
-    # the CUDA kernels of the rule's variants (K1b's and K2's wgmma variants:
-    # two a call; K2b's: five), once each a call
-    want = {k: fwd_n for k in fwd_kernels}
-    want.update({k: bwd_n for k in bwd_kernels})
+    expected, want = expected_launches(cfg, TRAIN_STEPS)
     if counts != expected or cuda_kernels != want:
         raise AssertionError(f"kernel launches {counts} ({cuda_kernels}) in "
-                             f"{TRAIN_STEPS} train steps of {cfg.num_layers} "
-                             f"layers, expected {expected} and {want}")
+                             f"{TRAIN_STEPS} train steps of {arch}, expected "
+                             f"{expected} and {want}")
     timed = losses[1:]
     if not all(math.isfinite(x) for x in losses) or timed[-1] >= losses[0] or \
             any(b >= a for a, b in zip(timed, timed[1:])):
@@ -1079,54 +1244,54 @@ def phase_train(arch: str) -> dict:
                              f"and falling: {losses}")
     n_params = param_count(params)
     ms = sum(times) / len(times) * 1e3
+    seq = batch["tokens"].shape[1]
     result = {"arch": arch, "family": cfg.family, "params": n_params,
-              "dtype": "bfloat16", "remat": cfg.remat, "batch": BATCH, "seq": PROMPT_LEN,
-              "steps_timed": TRAIN_STEPS, "warmup_step_s": warmup_s,
+              "dtype": "bfloat16", "remat": cfg.remat, "batch": BATCH, "seq": seq,
+              "steps_timed": TRAIN_STEPS, "lr": opt_cfg.lr, "warmup_step_s": warmup_s,
               "ms_per_step": ms, "ms_per_step_each": [t * 1e3 for t in times],
-              "tokens_per_s": BATCH * PROMPT_LEN / (ms / 1e3),
+              "tokens_per_s": BATCH * seq / (ms / 1e3),
               "warmup_loss": losses[0], "losses": timed,
               "peak_memory_bytes": peak,
               "param_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
               "moment_bytes": 2 * 4 * n_params, "fp32_grad_bytes": 4 * n_params,
               "launches_by_kernel": counts, "cuda_kernel_launches": cuda_kernels,
               "bwd_calls_that_copied_out_or_do": bwd_copies}
+    if "enc_embeds" in batch:
+        result["encoder_frames"] = WHISPER_FRAMES
     emit("train", **result)
     return result
 
 
 def phase_train_parity_bf16(arch: str) -> None:
-    """The gradients of `arch` at full width, 2 layers, in bf16 (the config's
-    types), kernel path against dense path: the path the fp32 run cannot
-    reach (K1b's wgmma variant; K2's wgmma forward under K2b).  Each gradient
-    leaf within BF16_GRAD_TOL, relative to its dense max; the backward's
-    CUDA kernels once a layer."""
+    """The gradients of `arch` at full width, 2 layers (Whisper: 2 and 2),
+    in bf16 (the config's types), kernel path against dense path: the path
+    the fp32 run cannot reach (K1b's wgmma variant; the scan's bf16
+    variants under K2b).  Each gradient leaf within BF16_GRAD_TOL, relative
+    to its dense max; each backward CUDA kernel once a backward call."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.ssd_scan import kernel as kssd
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.common import get_model
     from repro_torch.testing import rel_err
 
     cfg = get_config(arch).replace(num_layers=2)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(enc_layers=2, dec_layers=2)
     if cfg.compute_dtype != torch.bfloat16:
         raise AssertionError(f"{arch} computes in {cfg.compute_dtype}")
     dense = cfg.replace(attn_impl="dense")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = get_model(cfg).init(cfg, gen, "cuda")
     batch = _train_batch(cfg)
-    if cfg.family == "ssm":
-        module = kssd
-        expected = kssd.VARIANT_KERNELS_BWD[kssd.variant_bwd(
-            torch.bfloat16, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)]
-    else:
-        module = fa
-        expected = fa.VARIANT_KERNELS_BWD[fa.variant_bwd(torch.bfloat16,
-                                                         cfg.resolved_head_dim)]
-    before = module.launch_counts()
+    expected = {}
+    for op, (inner, outer) in op_calls(cfg).items():
+        if inner + outer:
+            op_name = "flash_attention" if op == "attention" else "ssd_scan"
+            for name in variant_kernels(cfg, op_name)[1]:
+                expected[name] = expected.get(name, 0) + inner + outer
+    before = cuda_kernel_counts()
     loss_k, grads_k = loss_and_grads(cfg, params, batch)
     torch.cuda.synchronize()
-    ran = {k: n - before[k] for k, n in module.launch_counts().items()
-           if n != before[k]}
+    ran = cuda_kernels_since(before)
     loss_d, grads_d = loss_and_grads(dense, params, batch)
     grad_errs = [rel_err(a, b) for a, b in zip(grads_k, grads_d)]
     loss_err = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
@@ -1137,15 +1302,16 @@ def phase_train_parity_bf16(arch: str) -> None:
               "tol": BF16_GRAD_TOL}
     emit("train_parity_on_card", **result)
     if not (max(grad_errs) < BF16_GRAD_TOL and loss_err < BF16_GRAD_TOL
-            and all(ran.get(k) == cfg.num_layers for k in expected)):
+            and all(ran.get(k) == n for k, n in expected.items())):
         raise AssertionError(f"bf16 training: kernel path and dense path "
-                             f"disagree: {result}")
+                             f"disagree: {result}, expected {expected}")
 
 
 def phase_train_parity_on_card(arch: str) -> None:
-    """One train step of `arch` at full width, 2 layers, fp32, with the
-    kernels against the dense path: loss, every gradient and the updated
-    params (the ill-conditioned elements counted, the rest) at PARITY_TOL."""
+    """One train step of `arch` at full width, 2 layers (Whisper: 2 and 2),
+    fp32, with the kernels against the dense path: loss, every gradient and
+    the updated params (the ill-conditioned elements counted, the rest) at
+    PARITY_TOL."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import loss_and_grads, make_train_step
     from repro_torch.models.common import get_model, tree_leaves, tree_map
@@ -1154,6 +1320,8 @@ def phase_train_parity_on_card(arch: str) -> None:
 
     cfg = get_config(arch).replace(num_layers=2, param_dtype=torch.float32,
                                    compute_dtype=torch.float32)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(enc_layers=2, dec_layers=2)
     dense = cfg.replace(attn_impl="dense")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     params = get_model(cfg).init(cfg, gen, "cuda")
@@ -1208,7 +1376,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
     smi_line = phase_env()
     phase_build(verbose="--verbose-build" in sys.argv[1:])
-    k1, k1_d80 = phase_kernels()
+    k1, k1_d80, k1_later = phase_kernels()
     k2 = phase_ssd_kernels()
     k2b = phase_ssd_bwd_kernels()
     serves = {}
@@ -1239,23 +1407,34 @@ def main() -> int:
     # scan's wgmma variant: the state pass, then the outputs; the attention
     # backward's: dQ with delta, then dK/dV; the scan's backward: the state
     # recurrences, the column and the row owners, ddt, the sums); K1 and K1b
-    # also at stablelm-3b's head dim 80, with the
-    # launches of its paths
-    at_d80 = {"flash_attention_fwd": (k1_d80, serves["stablelm-3b"]["kernel_launches"]),
-              "flash_attention_bwd": (k1b_d80, trained["stablelm-3b"]
-                                      ["launches_by_kernel"]["flash_attention_bwd"])}
+    # also at stablelm-3b's head dim 80, with the launches of its paths;
+    # `launches_later_families` the same counts on the paths of Qwen2-VL,
+    # Zamba2 and Whisper, and `later_families` the timings at their shapes
+    def served(arch, op):
+        return serves[arch]["launches_by_kernel"][op]
+
+    def train_launches(arch, op):
+        return trained[arch]["launches_by_kernel"][op]
+
+    later_archs = ("qwen2-vl-2b", "zamba2-1.2b", "whisper-large-v3")
+    at_d80 = {"flash_attention_fwd": (k1_d80, served("stablelm-3b", "flash_attention_fwd")),
+              "flash_attention_bwd": (k1b_d80, train_launches("stablelm-3b",
+                                                              "flash_attention_bwd"))}
     rows = []
-    for name, source, replaces, numbers, launches in (
+    for name, source, replaces, numbers, launches, later_launches in (
             ("flash_attention_fwd", fa.SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:32", k1,
-             serves["tinyllama-1.1b"]["kernel_launches"]),
+             served("tinyllama-1.1b", "flash_attention_fwd"),
+             {a: served(a, "flash_attention_fwd") for a in later_archs}),
             ("ssd_scan_fwd", ssd.SOURCE, "src/repro/kernels/ssd_scan/kernel.py:27",
-             k2, serves["mamba2-1.3b"]["kernel_launches"]),
+             k2, served("mamba2-1.3b", "ssd_scan_fwd"),
+             {a: served(a, "ssd_scan_fwd") for a in later_archs}),
             ("flash_attention_bwd", fa.SOURCE_BWD, "src/repro/models/flash.py:197",
-             k1b, trained["tinyllama-1.1b"]["launches_by_kernel"][
-                 "flash_attention_bwd"]),
+             k1b, train_launches("tinyllama-1.1b", "flash_attention_bwd"),
+             {a: train_launches(a, "flash_attention_bwd") for a in later_archs}),
             ("ssd_scan_bwd", ssd.SOURCE_BWD, "src/repro/models/mamba2.py:42",
-             k2b, trained["mamba2-1.3b"]["launches_by_kernel"]["ssd_scan_bwd"])):
+             k2b, train_launches("mamba2-1.3b", "ssd_scan_bwd"),
+             {a: train_launches(a, "ssd_scan_bwd") for a in later_archs})):
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1270,6 +1449,7 @@ def main() -> int:
             "library_ms": numbers["library_ms"],
             "variant": numbers["variant"],
             "cuda_kernels_per_call": numbers["cuda_kernels_per_call"],
+            "launches_later_families": later_launches,
         })
         if name == "ssd_scan_bwd":   # the fp32-pipe variant, timed in turns
             rows[-1]["earlier_variant"] = numbers["earlier_variant"]
@@ -1281,6 +1461,16 @@ def main() -> int:
                 "ms": d80["kernel_ms"], "earlier_ms": d80["earlier_ms"],
                 "library_ms": d80["library_ms"], "bound_ms": d80["bound_ms"],
                 "launches": launches}
+        timed_later = k1_later if name == "flash_attention_fwd" else \
+            numbers.get("later_families", {})
+        if timed_later:
+            rows[-1]["later_families"] = {
+                key: {"shape": t["shape"], "causal": t.get("causal"),
+                      "variant": t["variant"], "ms": t["kernel_ms"],
+                      "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                      "max_abs_err": t["max_abs_err"]}
+                for key, t in timed_later.items()}
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -26,15 +26,12 @@ ALL_ARCHS: List[str] = [
 ]
 
 PORTED_ARCHS: List[str] = [
-    "mamba2-1.3b", "nemotron-4-15b", "llama3.2-3b", "tinyllama-1.1b",
-    "stablelm-3b"]
+    "mamba2-1.3b", "zamba2-1.2b", "nemotron-4-15b", "llama3.2-3b",
+    "tinyllama-1.1b", "stablelm-3b", "whisper-large-v3", "qwen2-vl-2b"]
 
 _FAMILY_OF_UNPORTED: Dict[str, str] = {
-    "zamba2-1.2b": "hybrid",
     "mixtral-8x22b": "moe",
     "deepseek-v2-lite-16b": "moe",
-    "whisper-large-v3": "encdec",
-    "qwen2-vl-2b": "vlm",
 }
 
 

@@ -1,13 +1,16 @@
 """Serving launcher: batched prefill, then decode from the KV cache (dense
-archs) or the recurrent state (mamba2-1.3b), on one GPU.
+and Qwen2-VL archs), the recurrent state (mamba2-1.3b) or both
+(zamba2-1.2b), on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --preset full --batch 8 --prompt-len 1024 --gen 64
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --preset full --batch 8 --prompt-len 1024 --gen 64
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with no card and no such
-request it raises.
+request it raises.  Whisper (family ``encdec``) needs its frontend's frame
+embeddings and is refused, as the reference's launcher refuses it;
+``generate`` serves it with those embeddings in ``extra``.
 """
 from __future__ import annotations
 
@@ -22,9 +25,12 @@ from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.common import get_model, resolve_device
 
-# cache entries whose second-to-last dim is the sequence; a Mamba-2 cache has
-# none (its state and conv windows do not grow), so padding leaves it alone
-SEQ_KEYS = ("k", "v")
+# cache entries whose second-to-last dim is the sequence: the KV cache, and
+# Zamba2's shared attention's; a Mamba-2 state and conv windows do not grow,
+# and Whisper's cross K/V keep the encoder's length, so padding leaves them
+SEQ_KEYS = ("k", "v", "attn_k", "attn_v")
+ENCDEC_REFUSAL = ("whisper serving needs audio frontend inputs; "
+                  "see tests/test_models_smoke.py for the API")
 
 
 def pad_cache_to(cache: dict, max_len: int, window: Optional[int] = None) -> dict:
@@ -64,8 +70,10 @@ def sample(logits: torch.Tensor, temperature: float,
 
 def generate(cfg, params, prompts: torch.Tensor, gen: int,
              temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None):
-    """Prefill ``prompts`` [B, S] and decode ``gen`` tokens.
+             generator: Optional[torch.Generator] = None,
+             extra: Optional[dict] = None):
+    """Prefill ``prompts`` [B, S] and decode ``gen`` tokens.  ``extra`` holds
+    what else the prefill's batch takes (Whisper's ``enc_embeds``).
 
     Returns (tokens [B, gen], prefill seconds, decode seconds)."""
     device = prompts.device
@@ -73,7 +81,7 @@ def generate(cfg, params, prompts: torch.Tensor, gen: int,
     decode = make_decode_step(cfg)
     sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, {"tokens": prompts, **(extra or {})})
     cache = pad_cache_to(cache, prompts.shape[1] + gen, cfg.window)
     sync(device)
     t_prefill = time.perf_counter() - t0
@@ -105,6 +113,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = resolve_device(args.device)
     cfg = (get_smoke_config(args.arch) if args.preset == "smoke"
            else get_config(args.arch))
+    if cfg.family == "encdec":
+        raise SystemExit(ENCDEC_REFUSAL)
     model = get_model(cfg)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(cfg, generator, device)

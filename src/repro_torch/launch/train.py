@@ -1,5 +1,7 @@
-"""Training launcher of the port: a dense or Mamba-2 architecture on one
-device.
+"""Training launcher of the port: a dense, Qwen2-VL (text-only batches),
+Mamba-2 or Zamba2 architecture on one device; Whisper (family ``encdec``),
+whose loss needs its frontend's frame embeddings, is refused, as the
+reference's launcher refuses it.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
         --preset smoke --steps 50 --deadline 1800 [--device cuda|cpu]
@@ -36,7 +38,9 @@ def train(cfg: ModelConfig, *, steps: int, seq: int, batch: int,
 
     Returns {"losses", "step_s", "tokens_per_s", "locality", "params"}:
     each step's loss and seconds (host clock around a step that ends when its
-    loss reaches the host)."""
+    loss reaches the host).  Family ``encdec`` is refused."""
+    if cfg.family == "encdec":
+        raise SystemExit("use a seq2seq driver for whisper (see examples)")
     device = resolve_device(device)
     model = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(0)

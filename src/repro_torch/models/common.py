@@ -150,10 +150,7 @@ _REGISTRY: Dict[str, Any] = {}
 # families of the JAX package that the port does not have yet, and the slice
 # of the port that brings each
 UNPORTED_FAMILIES = {
-    "hybrid": "the Zamba2 slice (after Mamba-2)",
-    "encdec": "the Whisper slice",
     "moe": "the MoE slice (Mixtral, DeepSeek MLA)",
-    "vlm": "the Qwen2-VL slice (M-RoPE)",
 }
 
 
@@ -167,7 +164,7 @@ def register(family: str):
 def get_model(cfg: ModelConfig):
     """Return the model implementation class for ``cfg.family``."""
     # import for side-effect registration
-    from repro_torch.models import mamba2, transformer  # noqa: F401
+    from repro_torch.models import mamba2, transformer, whisper, zamba2  # noqa: F401
     if cfg.family in _REGISTRY:
         return _REGISTRY[cfg.family]
     if cfg.family in UNPORTED_FAMILIES:

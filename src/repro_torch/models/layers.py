@@ -64,7 +64,7 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings (RoPE, partial RoPE)
+# Rotary embeddings (RoPE, partial RoPE, M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -98,10 +98,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([out, x_pass], dim=-1) if rot < D else out
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: [B, H, S, D]; positions: [B, 3, S] -- (temporal, height, width) ids.
+    ``sections`` partitions the D//2 frequency slots among the 3 position
+    streams (e.g. (16, 24, 24) for D=128): slot f rotates by the angle of the
+    stream that owns it."""
+    D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to D//2 = {D // 2}")
+    cos_t, sin_t = _rope_angles(positions, D, theta)         # [B, 3, S, D//2]
+    owner = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))              # [D//2]
+    idx = owner[None, None, None, :].expand(cos_t.shape[0], 1, cos_t.shape[2], -1)
+    cos = torch.gather(cos_t, 1, idx)                         # [B, 1, S, D//2]
+    sin = torch.gather(sin_t, 1, idx)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def rope_for(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if cfg.mrope_sections is not None and positions.ndim == 3:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet: it comes with the Qwen2-VL slice")
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     if positions.ndim == 3:  # text-only batch through an mrope model
         positions = positions[:, 0]
     return apply_rope(x, positions, cfg.rope_theta, cfg.rope_fraction)
@@ -238,7 +260,8 @@ def attn_block(
 
     ``positions``: ``None`` (consecutive from 0, or from the cache length when
     decoding; only this form lets prefill take the kernel), ``[S]``, ``[B, S]``
-    or ``[B, 3, S]``.
+    or ``[B, 3, S]``.  RoPE rotates by them; masking uses the 1-D positions
+    of batch row 0 (the temporal stream of M-RoPE's three).
     """
     dt = x.dtype
     B, S = x.shape[0], x.shape[1]

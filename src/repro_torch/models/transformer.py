@@ -1,4 +1,5 @@
-"""Dense decoder-only GQA transformer (llama3.2 / tinyllama / stablelm / nemotron).
+"""Dense decoder-only GQA transformer (llama3.2 / tinyllama / stablelm /
+nemotron), and the Qwen2-VL backbone on it (M-RoPE, stubbed vision inputs).
 
 Params are plain dictionaries; ``params["layers"]`` is a list with one
 dictionary per layer, consumed by a Python loop.
@@ -82,6 +83,12 @@ class DenseTransformer:
         """tokens [B,S] -> final hidden [B,S,D], differentiable; each layer
         under ``cfg.remat`` when grad mode is on."""
         x = L.embed(cfg, params["embed"], tokens)
+        return DenseTransformer._layers(cfg, params, x, positions)
+
+    @staticmethod
+    def _layers(cfg: ModelConfig, params: Dict, x: torch.Tensor,
+                positions) -> torch.Tensor:
+        """Embeddings [B,S,D] through every layer and the final norm."""
         for lp in params["layers"]:
             def body(x, lp=lp):
                 return layer_fwd(cfg, lp, x, positions, window=cfg.window)[0]
@@ -176,3 +183,39 @@ class DenseTransformer:
         hidden = L.apply_norm(cfg, params["final_norm"], x)
         logits = DenseTransformer.logits(cfg, params, hidden)
         return logits, {"k": cache["k"], "v": cache["v"], "len": cur + S1}
+
+
+@register("vlm")
+class VLMTransformer(DenseTransformer):
+    """Qwen2-VL backbone: dense GQA transformer with M-RoPE.
+
+    The vision frontend is a stub, as in the reference: ``batch`` may carry
+    precomputed patch embeddings ``vision_embeds`` [B, S_v, D], which are
+    prepended to the token embeddings; 3-D M-RoPE position ids come in
+    ``batch["positions"]`` [B, 3, S].  Without them the positions are
+    ``arange`` on all three streams, vision prefix included, where
+    ``apply_mrope`` gathers the very cos/sin that 1-D RoPE computes over the
+    full head dim.  So the loss, the inherited ``prefill`` and
+    ``decode_step`` pass ``None``: 1-D RoPE, equal bit for bit to M-RoPE on
+    the reference's three equal streams, and masking at its default, so
+    prefill and training take the kernel."""
+
+    @staticmethod
+    def loss(cfg: ModelConfig, params: Dict, batch: Dict):
+        """Cross-entropy with z-loss over the text positions -> (loss, {})."""
+        tokens = batch["tokens"]
+        B = tokens.shape[0]
+        positions = batch.get("positions")
+        x = L.embed(cfg, params["embed"], tokens)
+        sv = 0
+        if "vision_embeds" in batch:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+            sv = batch["vision_embeds"].shape[1]
+            if positions is not None:
+                vis_pos = torch.arange(sv, device=tokens.device)[None, None].expand(B, 3, sv)
+                positions = torch.cat([vis_pos, positions + sv], dim=2)
+        # explicit positions mask by the temporal stream of batch row 0, as
+        # the reference does, on the dense path
+        hidden = DenseTransformer._layers(cfg, params, x, positions)
+        logits = DenseTransformer._logits(cfg, params, hidden)[:, sv:]
+        return L.softmax_xent(logits, batch["labels"]), {}

@@ -3,7 +3,7 @@ for anyone holding one package against the other.  Takes numpy arrays only,
 so it imports no JAX."""
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -38,21 +38,34 @@ def _unstack(tree: Any, i: int) -> Any:
     return tree[i].contiguous()
 
 
+def layer_lists(cfg: ModelConfig) -> Dict[str, int]:
+    """The keys of the parameter tree that the JAX package stacks on a
+    leading layer axis and the port keeps as lists, and their lengths."""
+    if cfg.family in ("dense", "vlm", "ssm", "hybrid"):
+        return {"layers": cfg.num_layers}
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers}
+    raise NotImplementedError(
+        f"parameter bridge for family {cfg.family!r} is not ported yet")
+
+
 def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     """The JAX package's parameter tree (nested dicts of numpy arrays) as the
-    port's.  The JAX tree stacks the layers on a leading axis of length
-    ``num_layers``; the port keeps a list of per-layer dicts.  Linear weights
-    are ``[d_in, d_out]`` on both sides, and every leaf keeps its type (the
-    fp32 ``dt_bias``, ``A_log`` and ``D`` of a Mamba-2 block stay fp32 in a
-    bf16 config).  The parameters land on ``device``
-    (``cuda`` unless the caller names another; no card then raises)."""
+    port's.  The JAX tree stacks the layers on a leading axis (``layers``;
+    Whisper's ``enc_layers`` and ``dec_layers``); the port keeps a list of
+    per-layer dicts.  Everything else keeps its layout: Zamba2's shared block
+    with its ``lora_a`` / ``lora_b`` stacked per application, Whisper's
+    ``pos_embed``.  Linear weights are ``[d_in, d_out]`` on both sides, and
+    every leaf keeps its type (the fp32 ``dt_bias``, ``A_log`` and ``D`` of a
+    Mamba-2 block stay fp32 in a bf16 config).  The parameters land on
+    ``device`` (``cuda`` unless the caller names another; no card then
+    raises)."""
     device = resolve_device(device)
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(
-            f"parameter bridge for family {cfg.family!r} is not ported yet")
+    lists = layer_lists(cfg)
     params = _convert(tree, device)
-    stacked = params["layers"]
-    params["layers"] = [_unstack(stacked, i) for i in range(cfg.num_layers)]
+    for key, n in lists.items():
+        stacked = params[key]
+        params[key] = [_unstack(stacked, i) for i in range(n)]
     return params
 
 
@@ -71,8 +84,8 @@ def from_jax_opt_state(cfg: ModelConfig, state: dict, device="cuda") -> dict:
 def to_jax_layout(cfg: ModelConfig, params: dict) -> dict:
     """The port's parameter tree (or a tree of the same structure: grads,
     moments) in the JAX package's layout: nested dicts of float32 numpy
-    arrays, the per-layer list stacked on a leading axis of length
-    ``num_layers``, so it can be compared leaf by leaf with a JAX tree."""
+    arrays, each per-layer list stacked on a leading axis of its length, so
+    it can be compared leaf by leaf with a JAX tree."""
     def convert(tree):
         if isinstance(tree, dict):
             return {k: convert(v) for k, v in tree.items()}
@@ -83,11 +96,13 @@ def to_jax_layout(cfg: ModelConfig, params: dict) -> dict:
             return {k: stack([t[k] for t in trees]) for k in trees[0]}
         return np.stack(trees)
 
-    if len(params["layers"]) != cfg.num_layers:
-        raise ValueError(f"{len(params['layers'])} layers, config has "
-                         f"{cfg.num_layers}")
-    out = {k: convert(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = stack([convert(lp) for lp in params["layers"]])
+    lists = layer_lists(cfg)
+    for key, n in lists.items():
+        if len(params[key]) != n:
+            raise ValueError(f"{len(params[key])} {key}, config has {n}")
+    out = {k: convert(v) for k, v in params.items() if k not in lists}
+    for key in lists:
+        out[key] = stack([convert(lp) for lp in params[key]])
     return out
 
 

@@ -87,9 +87,13 @@ def test_rope_for_text_positions_through_mrope_shape_and_mrope_raises():
     ref = JL.rope_for(jcfg, jnp.asarray(x), jnp.asarray(pos3))
     assert rel_err(PL.rope_for(pcfg, to_torch(x), to_torch(pos3)),
                    np.asarray(ref)) < TOL
-    with pytest.raises(NotImplementedError, match="Qwen2-VL"):
-        PL.rope_for(pcfg.replace(mrope_sections=(8, 12, 12)), to_torch(x),
-                    to_torch(pos3))
+    # M-RoPE, which used to raise here, is ported: with sections it follows
+    # the JAX package's apply_mrope (three equal streams here; distinct ones
+    # in tests/test_torch_vlm.py)
+    ref = JL.rope_for(jcfg.replace(mrope_sections=(8, 12, 12)), jnp.asarray(x),
+                      jnp.asarray(pos3))
+    assert rel_err(PL.rope_for(pcfg.replace(mrope_sections=(8, 12, 12)), to_torch(x),
+                               to_torch(pos3)), np.asarray(ref)) < TOL
 
 
 # -- attention cores --------------------------------------------------------------

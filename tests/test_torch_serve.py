@@ -104,19 +104,25 @@ def test_config_defaults_equal_jax_defaults():
 
 def test_arch_lists_and_unported_archs_say_which_slice():
     assert ALL_ARCHS == JAX_ARCHS
-    assert sorted(PORTED_ARCHS) == sorted(DENSE + ["mamba2-1.3b"])
-    for arch in ALL_ARCHS:
-        if arch in PORTED_ARCHS:
-            continue
+    assert sorted(PORTED_ARCHS) == sorted(
+        DENSE + ["mamba2-1.3b", "qwen2-vl-2b", "zamba2-1.2b", "whisper-large-v3"])
+    unported = [a for a in ALL_ARCHS if a not in PORTED_ARCHS]
+    assert sorted(unported) == ["deepseek-v2-lite-16b", "mixtral-8x22b"]
+    for arch in unported:
         for getter in (get_config, get_smoke_config):
-            with pytest.raises(NotImplementedError, match="slice"):
+            with pytest.raises(NotImplementedError, match="MoE slice"):
                 getter(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
     from repro_torch.models.mamba2 import Mamba2LM
-    assert get_model(get_smoke_config("tinyllama-1.1b").replace(family="ssm")) is Mamba2LM
-    with pytest.raises(NotImplementedError, match="Zamba2 slice"):
-        get_model(get_smoke_config("tinyllama-1.1b").replace(family="hybrid"))
+    from repro_torch.models.whisper import WhisperModel
+    from repro_torch.models.zamba2 import Zamba2LM
+    base = get_smoke_config("tinyllama-1.1b")
+    assert get_model(base.replace(family="ssm")) is Mamba2LM
+    assert get_model(base.replace(family="hybrid")) is Zamba2LM
+    assert get_model(base.replace(family="encdec")) is WhisperModel
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        get_model(base.replace(family="moe"))
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(get_smoke_config("tinyllama-1.1b").replace(family="rnn"))
     with pytest.raises(ValueError, match="not a torch dtype"):
@@ -320,6 +326,27 @@ def test_generate_under_a_window_keeps_the_ring_cache():
     assert rel_err(to_torch(np.asarray(jstep)), np.asarray(jfull)) > 0.5
 
 
+def test_pad_cache_to_grows_the_shared_attention_cache():
+    """``attn_k`` and ``attn_v`` (Zamba2's shared attention) grow along
+    their sequence dim as the reference's ``pad_cache_to`` grows them; the
+    Mamba state and conv windows and Whisper's cross K/V stay as they are."""
+    cache = {"attn_k": torch.ones(2, 3, 4, 5, 8), "attn_v": torch.ones(2, 3, 4, 5, 8),
+             "k": torch.ones(2, 3, 4, 5, 8), "cross_k": torch.ones(2, 3, 4, 5, 8),
+             "ssm": torch.ones(2, 3, 4, 5, 8), "conv_x": torch.ones(2, 3, 3, 16),
+             "len": 5}
+    jcache = jax_serve.pad_cache_to({k: (np.asarray(v) if isinstance(v, torch.Tensor) else v)
+                                     for k, v in cache.items()}, 9)
+    out = serve.pad_cache_to(cache, 9)
+    for key, val in out.items():
+        if key == "len":
+            assert val == 5
+            continue
+        assert val.shape == jcache[key].shape, key
+        assert np.array_equal(val.numpy(), np.asarray(jcache[key])), key
+    assert out["attn_k"].shape[3] == out["attn_v"].shape[3] == 9
+    assert out["cross_k"] is cache["cross_k"] and out["ssm"] is cache["ssm"]
+
+
 def test_sampling_with_temperature_is_seeded():
     cfg = get_smoke_config("tinyllama-1.1b")
     params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -352,7 +379,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
 def test_init_without_a_device_means_the_card():
     """``init``, ``init_cache`` and the parameter bridge default to ``cuda``:
     with no card they raise, and take the CPU only when asked to."""
-    for arch in ("tinyllama-1.1b", "mamba2-1.3b"):
+    for arch in ("tinyllama-1.1b", "mamba2-1.3b", "qwen2-vl-2b", "zamba2-1.2b",
+                 "whisper-large-v3"):
         cfg = get_smoke_config(arch)
         model = get_model(cfg)
         np_tree = _np_params(jax_smoke(arch), 0)
@@ -402,6 +430,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
                for p in files if "repro_torch" in p.parts}
     assert {"models/mamba2.py", "configs/mamba2_1p3b.py", "kernels/_build.py",
+            "models/zamba2.py", "models/whisper.py", "configs/qwen2_vl_2b.py",
             "kernels/ssd_scan/ref.py", "kernels/ssd_scan/kernel.py",
             "kernels/ssd_scan/ops.py", "optim/adamw.py", "data/pipeline.py",
             "core/estimator.py", "launch/train.py"} <= scanned

@@ -510,10 +510,10 @@ def test_train_launcher_trains_mamba2_on_the_cpu(capsys):
 
 
 def test_train_refuses_an_arch_without_a_training_path():
-    """A family the port has not ported (zamba2's hybrid) refuses, and says
+    """A family the port has not ported (mixtral's moe) refuses, and says
     which slice brings it."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--arch", "zamba2-1.2b", "--device", "cpu", "--steps", "1"])
+        train.main(["--arch", "mixtral-8x22b", "--device", "cpu", "--steps", "1"])
 
 
 def test_quickstart_torch_runs_on_the_cpu(capsys):
