@@ -9,8 +9,9 @@ scan forward and backward) from the sources in this checkout, holds each
 against its plain PyTorch version on the card (naming the CUDA kernels that
 each call launched, as the C functions count them), times the attention
 forward and backward in turns against their earlier variants and PyTorch's
-fused backends and the SSD backward against its fp32-pipe variant, and each
-kernel at the full-width shapes of Qwen2-VL, Whisper and Zamba2; serves
+fused backends and the SSD scan's forward and backward against their
+fp32-pipe variants, and each kernel at the full-width shapes of Qwen2-VL,
+Whisper and Zamba2; serves
 tinyllama-1.1b, stablelm-3b, mamba2-1.3b, qwen2-vl-2b, zamba2-1.2b and
 whisper-large-v3 at full width (random weights from a seed: batch 8 x prompt
 1024, 64 generated tokens; Whisper 1500 frames of random embeddings and a
@@ -115,8 +116,9 @@ BF16_GRAD_TOL = 5e-2
 
 # (B, S, H, P, G, N, chunk) of the SSD scan: the sweep of the JAX package's
 # kernel tests (the fp32-pipe kernel in both types), then chunks 64, 128 (the
-# JAX kernel's default) and 256 (the model's) at mamba2-1.3b's P and N (the
-# tensor-core kernel in bf16), with groups and ragged last chunks.
+# JAX kernel's default) and 256 (the model's) at mamba2-1.3b's P and N 128
+# and zamba2-1.2b's N 64 (the tensor-core kernels in bf16, one or two
+# 64-column atoms of the state), with groups and ragged last chunks.
 SSD_SHAPES = [
     (1, 64, 2, 16, 1, 8, 32),
     (2, 100, 4, 16, 2, 8, 32),    # ragged + groups
@@ -128,21 +130,27 @@ SSD_SHAPES = [
     # three heads in a group (a head tile of one: the backward's second
     # warpgroup idle), the last chunk short of its second row tile
     (1, 300, 3, 64, 1, 128, 128),
-    # Zamba2's N 64 at chunk 256, ragged: the fp32-pipe kernels in bf16 too
+    # Zamba2's N 64 in the corners of the wgmma domain: chunk 256, ragged;
     (1, 600, 8, 64, 1, 64, 256),
+    (2, 200, 2, 64, 1, 64, 64),    # ragged, the smallest chunk
+    (2, 384, 4, 64, 2, 64, 128),   # two groups
+    (1, 300, 3, 64, 1, 64, 128),   # three heads in a group, a short last chunk
 ]
-SSD_INIT_STATE = {1, 5, 7, 8}      # cases also run from a random initial state
-# (and, for the backward, with a gradient of the final state)
+SSD_INIT_STATE = {1, 5, 7, 8, 9, 10, 11}   # cases also run from a random
+# initial state (and, for the backward, with a gradient of the final state)
 
 # K1 at llama3.2-3b's full width (head dim 128, 24 / 8 heads), timed beside the
 # main paths' shapes
 K1_D128_SHAPE = (8, 24, 8, 1024, 1024, 128)
 # the later families' full-width shapes, timed too: Qwen2-VL's attention (a
 # group of 6 at head dim 128), Whisper's cross-attention (375 decoder rows
-# over 1500 frames, non-causal), Zamba2's scan (B, S, H, P, G, N; chunk 256:
-# N 64, which the wgmma variants do not take)
+# over 1500 frames, non-causal), its encoder's self-attention (1500 frames,
+# non-causal) and its decoder's (375 rows, causal), Zamba2's scan (B, S, H,
+# P, G, N; chunk 256: N 64, one 64-column atom of the state)
 QWEN2_VL_ATTN_SHAPE = (8, 12, 2, 1024, 1024, 128)
 WHISPER_CROSS_SHAPE = (8, 20, 20, 375, 1500, 64)
+WHISPER_ENCODER_SHAPE = (8, 20, 20, 1500, 1500, 64)
+WHISPER_DECODER_SHAPE = (8, 20, 20, 375, 375, 64)
 ZAMBA2_SSD_SHAPE = (8, 1024, 64, 64, 1, 64)
 
 # The main paths: each arch served at batch 8 x prompt 1024, 64 generated
@@ -408,6 +416,12 @@ def in_turns(turns, iters: int):
     return ms, order
 
 
+def ssd_wgmma_domain(dtype, P: int, N: int, chunk: int) -> bool:
+    """Where the SSD scan's rule must name the wgmma variants, forward and
+    backward: bf16 at P 64, N 64 or 128, chunk 64 and up."""
+    return dtype == torch.bfloat16 and P == 64 and N in (64, 128) and chunk >= 64
+
+
 def library_attention(q, k, v, causal):
     """One PyTorch call for the same function: the yardstick, used nowhere in
     the port."""
@@ -549,7 +563,9 @@ def phase_kernels() -> dict:
     d32 = measure(D32_SHAPE)
     # Qwen2-VL's (a group of 6) and Whisper's cross-attention (non-causal)
     later = {"qwen2-vl-2b": measure(QWEN2_VL_ATTN_SHAPE),
-             "whisper-large-v3 cross": measure(WHISPER_CROSS_SHAPE, causal=False)}
+             "whisper-large-v3 cross": measure(WHISPER_CROSS_SHAPE, causal=False),
+             "whisper-large-v3 encoder": measure(WHISPER_ENCODER_SHAPE, causal=False),
+             "whisper-large-v3 decoder": measure(WHISPER_DECODER_SHAPE)}
     emit("kernels", name="flash_attention_fwd", sweep=cases,
          max_rel_err_fp32=max(c["rel_err"] for c in cases if c["dtype"] == "float32"),
          max_rel_err_bf16=max(c["rel_err"] for c in cases if c["dtype"] == "bfloat16"),
@@ -703,23 +719,23 @@ def phase_attention_bwd() -> dict:
                         and (ran == "fa_bwd_wgmma") == (dtype == torch.bfloat16)):
                     raise AssertionError(f"flash_attention_bwd disagrees: {case}")
 
-    def measure(shape, must_beat_earlier=False) -> dict:
-        """bf16 causal at a full-width training shape: error, the kernel
-        (variant_bwd's) timed in turns with the mma.sync variant and with the
-        fastest SDPA backend, each backend alone, the split between the CUDA
-        kernels, and the bounds."""
+    def measure(shape, must_beat_earlier=False, causal=True) -> dict:
+        """bf16 at a full-width training shape (causal unless told
+        otherwise): error, the kernel (variant_bwd's) timed in turns with the
+        mma.sync variant and with the fastest SDPA backend, each backend
+        alone, the split between the CUDA kernels, and the bounds."""
         B, Hq, Hkv, Sq, Skv, D = shape
-        q, k, v, out, lse, do = inputs(shape, torch.bfloat16, True, None)
+        q, k, v, out, lse, do = inputs(shape, torch.bfloat16, causal, None)
         grads, ran, n_kernels = launched_variant(
-            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True), fa,
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal), fa,
             fa.variant_bwd(torch.bfloat16, D), fa.VARIANT_KERNELS_BWD)
-        ref = attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+        ref = attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
         errs = [rel_err(g, r) for g, r in zip(grads, ref)]
         abs_err = max(float((g.float() - r.float()).abs().max())
                       for g, r in zip(grads, ref))
-        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
         equal = all(torch.equal(a, b) for a, b in zip(grads, again))
-        _, lse_k = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+        _, lse_k = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
         main_lse_err = lse_err(lse_k, lse)
         if not (max(errs) < BWD_TOL[torch.bfloat16]
                 and main_lse_err < TOL[torch.bfloat16] and equal
@@ -729,9 +745,9 @@ def phase_attention_bwd() -> dict:
                                  f"with {n_kernels} CUDA kernels")
         earlier = "fa_bwd_bf16_mma"   # the mma.sync design, at every bf16 head dim
         kernel = lambda: fa.flash_attention_bwd(  # noqa: E731
-            q, k, v, out, lse, do, causal=True)
+            q, k, v, out, lse, do, causal=causal)
         mma = lambda: fa.flash_attention_bwd(  # noqa: E731
-            q, k, v, out, lse, do, causal=True, variant=earlier)
+            q, k, v, out, lse, do, causal=causal, variant=earlier)
         mma_err = max(rel_err(g, r) for g, r in zip(mma(), ref))
         # every SDPA backend that takes the inputs, alone, then the fastest
         # in turns with the two kernels: new, earlier, library, library,
@@ -739,7 +755,7 @@ def phase_attention_bwd() -> dict:
         backends, library_errs = {}, {}
         calls = {}
         for name in SDPA_BACKENDS:
-            call, gqa = sdpa_backward(q, k, v, do, True, name)
+            call, gqa = sdpa_backward(q, k, v, do, causal, name)
             if call is None:
                 backends[name] = None
                 continue
@@ -753,14 +769,14 @@ def phase_attention_bwd() -> dict:
             turns.append(("library", calls[best]))
         ms, order = in_turns(turns, 20)
         plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do,
-                                                     causal=True), 3, 1)
-        bound_ms, bound_by = attention_bwd_bound_ms(q, k, v, True, None)
-        seven_ms = attention_bwd_seven_products_ms(q, k, True, None)
+                                                     causal=causal), 3, 1)
+        bound_ms, bound_by = attention_bwd_bound_ms(q, k, v, causal, None)
+        seven_ms = attention_bwd_seven_products_ms(q, k, causal, None)
         split = device_split(kernel)
         kernel_ms = min(ms["kernel"])
         if must_beat_earlier and not kernel_ms < min(ms["earlier"]):
             raise AssertionError(f"{ran} is not faster than {earlier}: {order}")
-        return {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+        return {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
                 "variant": ran, "cuda_kernels_per_call": n_kernels,
                 "dq_rel_err": errs[0], "dk_rel_err": errs[1], "dv_rel_err": errs[2],
                 "max_abs_err": abs_err, "lse_rel_err": main_lse_err,
@@ -783,6 +799,13 @@ def phase_attention_bwd() -> dict:
     d80 = measure(STABLELM_ATTN_SHAPE, must_beat_earlier=True)
     d128 = measure(BWD_D128_SHAPE)
     d32 = measure(D32_SHAPE)
+    # the later families' training shapes: Qwen2-VL's group of 6, Whisper's
+    # cross-attention and encoder (non-causal) and decoder
+    main["later_families"] = {
+        "qwen2-vl-2b": measure(QWEN2_VL_ATTN_SHAPE),
+        "whisper-large-v3 cross": measure(WHISPER_CROSS_SHAPE, causal=False),
+        "whisper-large-v3 encoder": measure(WHISPER_ENCODER_SHAPE, causal=False),
+        "whisper-large-v3 decoder": measure(WHISPER_DECODER_SHAPE)}
     # the forward at the training shape, without and with the log-sum-exp,
     # in turns
     B, Hq, Hkv, Sq, Skv, D = TRAIN_ATTN_SHAPE
@@ -836,73 +859,86 @@ def phase_ssd_kernels() -> dict:
     def make(*shape, with_init=False):
         return ssd_inputs(gen, *shape, with_init)
 
+    def call(args, chunk, h0=None, name=None):
+        """One call of the scan forward: through the op (the rule's variant)
+        where `name` is None, else the named variant through the wrapper."""
+        if name is None:
+            return lambda: ssd(*args, chunk=chunk, init_state=h0, return_state=True)
+        return lambda: kssd.ssd_scan_fwd(*args, chunk=chunk, init_state=h0,
+                                         variant=name)
+
+    # every case through variant()'s variant; where that is the wgmma one
+    # (bf16 at P 64, N 64 or 128, chunk >= 64), through the fp32-pipe one as
+    # well (named); y and the final state against the plain version, and two
+    # calls bitwise equal
+    earlier = "ssd_fwd_kernel"
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for idx, (B, S, H, P, G, N, chunk) in enumerate(SSD_SHAPES):
+            rule = kssd.variant(dtype, P, N, chunk)
+            if (rule == "ssd_wgmma") != ssd_wgmma_domain(dtype, P, N, chunk):
+                raise AssertionError(f"variant() names {rule} for {dtype} at "
+                                     f"(P={P}, N={N}, chunk={chunk})")
             for with_init in sorted({False, idx in SSD_INIT_STATE}):
                 args, h0 = make(B, S, H, P, G, N, dtype, with_init=with_init)
-                (y, hT), ran, _ = launched_variant(
-                    lambda: ssd(*args, chunk=chunk, init_state=h0,
-                                return_state=True),
-                    kssd, kssd.variant(dtype, P, N, chunk))
                 ry, rh = ssd_chunked_ref(*args, chunk=chunk, init_state=h0)
-                err_y, err_h = rel_err(y, ry), rel_err(hT, rh)
-                cases.append({"shape": [B, S, H, P, G, N], "chunk": chunk,
-                              "dtype": str(dtype).split(".")[1],
-                              "variant": ran,
-                              "init_state": with_init, "y_rel_err": err_y,
-                              "state_rel_err": err_h, "tol": TOL[dtype]})
-                if not (err_y < TOL[dtype] and err_h < TOL[dtype]
-                        and torch.isfinite(y).all() and torch.isfinite(hT).all()
-                        and (N != 64 or ran == "ssd_fwd_kernel")):
-                    raise AssertionError(f"ssd disagrees: {cases[-1]}")
+                for name in [None] + ([earlier] if rule != earlier else []):
+                    fn = call(args, chunk, h0, name)
+                    (y, hT), ran, _ = launched_variant(fn, kssd, name or rule)
+                    y2, hT2 = fn()
+                    err_y, err_h = rel_err(y, ry), rel_err(hT, rh)
+                    cases.append({"shape": [B, S, H, P, G, N], "chunk": chunk,
+                                  "dtype": str(dtype).split(".")[1],
+                                  "variant": ran, "named": name is not None,
+                                  "init_state": with_init, "y_rel_err": err_y,
+                                  "state_rel_err": err_h, "tol": TOL[dtype],
+                                  "equal_run_to_run": bool(torch.equal(y, y2)
+                                                           and torch.equal(hT, hT2))})
+                    if not (err_y < TOL[dtype] and err_h < TOL[dtype]
+                            and torch.isfinite(y).all() and torch.isfinite(hT).all()
+                            and cases[-1]["equal_run_to_run"]):
+                        raise AssertionError(f"ssd disagrees: {cases[-1]}")
+
+    def measure(shape, chunk):
+        """bf16 at a full-width shape: error against the plain version, the
+        rule's variant (which must be ssd_wgmma) timed in turns with the
+        fp32-pipe variant and the plain version, each the better of two
+        readings, and faster than the fp32-pipe one; each variant's split
+        by CUDA kernel; the bound."""
+        B, S, H, P, G, N = shape
+        args, _ = make(B, S, H, P, G, N, torch.bfloat16)
+        kernel, pipes = call(args, chunk), call(args, chunk, name=earlier)
+        plain = lambda: ssd_chunked_ref(*args, chunk=chunk)  # noqa: E731
+        (y, hT), ran, n_kernels = launched_variant(
+            kernel, kssd, kssd.variant(torch.bfloat16, P, N, chunk))
+        (ye, he), _, _ = launched_variant(pipes, kssd, earlier)
+        ry, rh = plain()
+        err, err_h = rel_err(y, ry), rel_err(hT, rh)
+        if not (err < TOL[torch.bfloat16] and err_h < TOL[torch.bfloat16]
+                and ran == "ssd_wgmma"):
+            raise AssertionError(f"shape {shape} disagrees: y {err}, state {err_h}, {ran}")
+        ms, order = in_turns([("kernel", kernel), ("earlier", pipes), ("plain", plain)], 10)
+        kernel_ms, earlier_ms = min(ms["kernel"]), min(ms["earlier"])
+        if not kernel_ms < earlier_ms:
+            raise AssertionError(f"{ran} is not faster than {earlier}: {order}")
+        bound_ms, bound_by = ssd_bound_ms(*args, chunk)
+        return {"shape": [B, S, H, P, G, N], "chunk": chunk, "dtype": "bfloat16",
+                "variant": ran, "cuda_kernels_per_call": n_kernels,
+                "max_rel_err": err, "state_rel_err": err_h,
+                "max_abs_err": float((y.float() - ry.float()).abs().max()),
+                "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
+                "plain_ms": min(ms["plain"]), "ms_in_turns": order, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "cuda_kernels": device_split(kernel),
+                "earlier_variant": earlier, "earlier_ms": earlier_ms,
+                "earlier_max_rel_err": max(rel_err(ye, ry), rel_err(he, rh)),
+                "earlier_cuda_kernels": device_split(pipes, 3),
+                "speedup_over_earlier": earlier_ms / kernel_ms}
 
     # the main path's shape: one mamba2-1.3b layer's scan at batch 8 x 1024
-    B, S, H, P, G, N, chunk = BATCH, PROMPT_LEN, 64, 64, 1, 128, 256
-    args, _ = make(B, S, H, P, G, N, torch.bfloat16)
-    (y, hT), ran, n_kernels = launched_variant(
-        lambda: ssd(*args, chunk=chunk, return_state=True), kssd,
-        kssd.variant(torch.bfloat16, P, N, chunk))
-    ry, rh = ssd_chunked_ref(*args, chunk=chunk)
-    err, err_h = rel_err(y, ry), rel_err(hT, rh)
-    abs_err = float((y.float() - ry.float()).abs().max())
-    if not (err < TOL[torch.bfloat16] and err_h < TOL[torch.bfloat16]):
-        raise AssertionError(f"main-path shape disagrees: y {err}, state {err_h}")
-    plain_ms = time_ms(lambda: ssd_chunked_ref(*args, chunk=chunk), 5, 1)
-    kernel_ms = time_ms(lambda: ssd(*args, chunk=chunk, return_state=True), 20)
-    kernel_ms = min(kernel_ms,
-                    time_ms(lambda: ssd(*args, chunk=chunk, return_state=True), 20))
-    bound_ms, bound_by = ssd_bound_ms(*args, chunk)
-    main = {"shape": [B, S, H, P, G, N], "chunk": chunk, "dtype": "bfloat16",
-            "variant": ran, "cuda_kernels_per_call": n_kernels,
-            "max_rel_err": err, "state_rel_err": err_h, "max_abs_err": abs_err,
-            "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by}
-
-    # Zamba2's layer at batch 8 x 1024: N 64, on the fp32-pipe kernel in
-    # bf16; the kernel and the plain version in turns
-    B, S, H, P, G, N = ZAMBA2_SSD_SHAPE
-    args, _ = make(B, S, H, P, G, N, torch.bfloat16)
-    (y, hT), ran, n_kernels = launched_variant(
-        lambda: ssd(*args, chunk=chunk, return_state=True), kssd,
-        kssd.variant(torch.bfloat16, P, N, chunk))
-    ry, rh = ssd_chunked_ref(*args, chunk=chunk)
-    err, err_h = rel_err(y, ry), rel_err(hT, rh)
-    if not (err < TOL[torch.bfloat16] and err_h < TOL[torch.bfloat16]
-            and ran == "ssd_fwd_kernel"):
-        raise AssertionError(f"Zamba2's shape disagrees: y {err}, state {err_h}, {ran}")
-    ms, order = in_turns([("kernel", lambda: ssd(*args, chunk=chunk, return_state=True)),
-                          ("plain", lambda: ssd_chunked_ref(*args, chunk=chunk))], 10)
-    bound_ms, bound_by = ssd_bound_ms(*args, chunk)
-    zamba2 = {"shape": [B, S, H, P, G, N], "chunk": chunk, "dtype": "bfloat16",
-              "variant": ran, "cuda_kernels_per_call": n_kernels,
-              "max_rel_err": err, "state_rel_err": err_h,
-              "max_abs_err": float((y.float() - ry.float()).abs().max()),
-              "tol": TOL[torch.bfloat16], "kernel_ms": min(ms["kernel"]),
-              "plain_ms": min(ms["plain"]), "ms_in_turns": order, "library_ms": None,
-              "bound_ms": bound_ms, "bound_by": bound_by}
-    main["later_families"] = {"zamba2-1.2b": zamba2}
+    # (N 128); Zamba2's layer at the same batch (N 64)
+    main = measure((BATCH, PROMPT_LEN, 64, 64, 1, 128), 256)
+    main["later_families"] = {"zamba2-1.2b": measure(ZAMBA2_SSD_SHAPE, 256)}
     emit("kernels", name="ssd_scan_fwd", sweep=cases,
          max_rel_err_fp32=max(c["y_rel_err"] for c in cases if c["dtype"] == "float32"),
          max_rel_err_bf16=max(c["y_rel_err"] for c in cases if c["dtype"] == "bfloat16"),
@@ -966,65 +1002,60 @@ def phase_ssd_bwd_kernels() -> dict:
                 "tol": BWD_TOL[dtype],
                 "equal_run_to_run": all(torch.equal(a, b) for a, b in zip(grads, again))}
         if not (max(errs.values()) < BWD_TOL[dtype] and case["equal_run_to_run"]
-                and all(bool(torch.isfinite(g).all()) for g in grads)
-                and (N != 64 or ran == "ssd_bwd_simt")):
+                and all(bool(torch.isfinite(g).all()) for g in grads)):
             raise AssertionError(f"ssd_scan_bwd disagrees: {case}")
         return case, args, bwd, plain, grads, ref, n_kernels
 
     # every case through variant_bwd's variant; where that is the wgmma one
-    # (bf16 at P 64, N 128, chunk >= 64), through the fp32-pipe one as well
+    # (bf16 at P 64, N 64 or 128, chunk >= 64), through the fp32-pipe one as
+    # well
     earlier = "ssd_bwd_simt"
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for idx, (B, S, H, P, G, N, chunk) in enumerate(SSD_SHAPES):
+            rule = kssd.variant_bwd(dtype, P, N, chunk)
+            if (rule == "ssd_bwd_wgmma") != ssd_wgmma_domain(dtype, P, N, chunk):
+                raise AssertionError(f"variant_bwd() names {rule} for {dtype} at "
+                                     f"(P={P}, N={N}, chunk={chunk})")
             names = [None]
-            if kssd.variant_bwd(dtype, P, N, chunk) != earlier:
+            if rule != earlier:
                 names.append(earlier)
             for with_init in sorted({False, idx in SSD_INIT_STATE}):
                 for name in names:
                     cases.append(check((B, S, H, P, G, N), chunk, dtype, with_init,
                                        name)[0])
 
-    # the training shape: one mamba2-1.3b layer's scan at batch 8 x 1024,
-    # bf16, chunk 256, no initial state and no final-state gradient; the
-    # rule's variant, the fp32-pipe one and the plain version in turns
-    shape, chunk = (BATCH, PROMPT_LEN, 64, 64, 1, 128), 256
-    case, args, bwd, plain, grads, ref, n_kernels = check(
-        shape, chunk, torch.bfloat16, False)
-    earlier_case, _, simt, _, _, _, _ = check(shape, chunk, torch.bfloat16, False,
-                                              earlier)
-    abs_err = max(float((g.float() - r.float()).abs().max())
-                  for g, r in zip(grads[:5], ref[:5]))
-    ms, order = in_turns([("kernel", bwd), ("earlier", simt), ("plain", plain)], 5)
-    kernel_ms, earlier_ms = min(ms["kernel"]), min(ms["earlier"])
-    if not (case["variant"] == "ssd_bwd_wgmma" and kernel_ms < earlier_ms):
-        raise AssertionError(f"{case['variant']} is not faster than {earlier}: {order}")
-    bound_ms, bound_by = ssd_bwd_bound_ms(*args, chunk)
-    main = {**case, "cuda_kernels_per_call": n_kernels, "max_abs_err": abs_err,
-            "kernel_ms": kernel_ms, "plain_ms": min(ms["plain"]),
-            "ms_in_turns": order, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "cuda_kernels": device_split(bwd, 3),
-            "earlier_variant": earlier, "earlier_ms": earlier_ms,
-            "earlier_max_rel_err": max(v for k, v in earlier_case.items()
-                                       if k.endswith("_rel_err")),
-            "earlier_cuda_kernels": device_split(simt, 3),
-            "speedup_over_earlier": earlier_ms / kernel_ms}
+    def measure(shape, chunk):
+        """A training shape, bf16, no initial state and no final-state
+        gradient: the rule's variant (which must be ssd_bwd_wgmma), the
+        fp32-pipe one and the plain version in turns, the wgmma one the
+        faster; each variant's split by CUDA kernel; the bound."""
+        case, args, bwd, plain, grads, ref, n_kernels = check(
+            shape, chunk, torch.bfloat16, False)
+        earlier_case, _, simt, _, _, _, _ = check(shape, chunk, torch.bfloat16, False,
+                                                  earlier)
+        abs_err = max(float((g.float() - r.float()).abs().max())
+                      for g, r in zip(grads[:5], ref[:5]))
+        ms, order = in_turns([("kernel", bwd), ("earlier", simt), ("plain", plain)], 5)
+        kernel_ms, earlier_ms = min(ms["kernel"]), min(ms["earlier"])
+        if not (case["variant"] == "ssd_bwd_wgmma" and kernel_ms < earlier_ms):
+            raise AssertionError(f"{case['variant']} is not faster than {earlier}: {order}")
+        bound_ms, bound_by = ssd_bwd_bound_ms(*args, chunk)
+        return {**case, "cuda_kernels_per_call": n_kernels, "max_abs_err": abs_err,
+                "kernel_ms": kernel_ms, "plain_ms": min(ms["plain"]),
+                "ms_in_turns": order, "library_ms": None,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "cuda_kernels": device_split(bwd, 3),
+                "earlier_variant": earlier, "earlier_ms": earlier_ms,
+                "earlier_max_rel_err": max(v for k, v in earlier_case.items()
+                                           if k.endswith("_rel_err")),
+                "earlier_cuda_kernels": device_split(simt, 3),
+                "speedup_over_earlier": earlier_ms / kernel_ms}
 
-    # Zamba2's training shape: N 64, so the rule's variant is ssd_bwd_simt
-    # in bf16 too; it and the plain version in turns
-    case, args, bwd, plain, grads, ref, n_kernels = check(
-        ZAMBA2_SSD_SHAPE, chunk, torch.bfloat16, False)
-    ms, order = in_turns([("kernel", bwd), ("plain", plain)], 3)
-    bound_ms, bound_by = ssd_bwd_bound_ms(*args, chunk)
-    main["later_families"] = {"zamba2-1.2b": {
-        **case, "cuda_kernels_per_call": n_kernels,
-        "max_abs_err": max(float((g.float() - r.float()).abs().max())
-                           for g, r in zip(grads[:5], ref[:5])),
-        "kernel_ms": min(ms["kernel"]), "plain_ms": min(ms["plain"]),
-        "ms_in_turns": order, "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "cuda_kernels": device_split(bwd, 3)}}
+    # the training shapes: one mamba2-1.3b layer's scan at batch 8 x 1024,
+    # chunk 256 (N 128), and Zamba2's (N 64)
+    main = measure((BATCH, PROMPT_LEN, 64, 64, 1, 128), 256)
+    main["later_families"] = {"zamba2-1.2b": measure(ZAMBA2_SSD_SHAPE, 256)}
     emit("kernels", name="ssd_scan_bwd", sweep=cases,
          max_rel_err_fp32=max(max(v for k, v in c.items() if k.endswith("_rel_err"))
                               for c in cases if c["dtype"] == "float32"),
@@ -1451,7 +1482,7 @@ def main() -> int:
             "cuda_kernels_per_call": numbers["cuda_kernels_per_call"],
             "launches_later_families": later_launches,
         })
-        if name == "ssd_scan_bwd":   # the fp32-pipe variant, timed in turns
+        if name.startswith("ssd"):   # the fp32-pipe variant, timed in turns
             rows[-1]["earlier_variant"] = numbers["earlier_variant"]
             rows[-1]["earlier_ms"] = numbers["earlier_ms"]
         if name in at_d80:
@@ -1469,7 +1500,9 @@ def main() -> int:
                       "variant": t["variant"], "ms": t["kernel_ms"],
                       "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
                       "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                      "max_abs_err": t["max_abs_err"]}
+                      "max_abs_err": t["max_abs_err"],
+                      **({"earlier_variant": t["earlier_variant"],
+                          "earlier_ms": t["earlier_ms"]} if name.startswith("ssd") else {})}
                 for key, t in timed_later.items()}
     print(json.dumps({"kernels": rows}))
     print(smi_line)

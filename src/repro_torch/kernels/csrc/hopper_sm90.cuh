@@ -467,6 +467,24 @@ __device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
 }
 
+// D[64 x C] (+)= A[64 x 16] * B[16 x C], A and B from shared memory, C the
+// columns of one or two 64-column atoms (the SSD scan's state at N 64 or
+// 128): the n64 or the n128 product, the first k-step with scale-d 0.
+template <int C, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_cols(float (&d)[C / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  static_assert(C == 64 || C == 128, "no wgmma for C");
+  if constexpr (C == 64) wgmma_ss_n64<TA, TB>(d, da, db, scale_d);
+  else wgmma_ss_n128<TA, TB>(d, da, db, scale_d);
+}
+template <int C, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_cols_first(float (&d)[C / 2], uint64_t da,
+                                                    uint64_t db) {
+  static_assert(C == 64 || C == 128, "no wgmma for C");
+  if constexpr (C == 64) wgmma_ss_n64_first<TA, TB>(d, da, db);
+  else wgmma_ss_n128_first<TA, TB>(d, da, db);
+}
+
 // -- host: tensor maps ----------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -26,10 +26,10 @@
 // group): bytes bound it, narrowly.  Both variants take dB and dC per head
 // (95 GFLOP there), which lets a block own its heads' sums.  Two variants; the wrapper's
 // `kernel.variant_bwd()` chooses by (dtype, P, N, chunk) and passes its code:
-//  * `ssd_bwd_wgmma`, bf16 at P 64, N 128, chunk 64, 128 or 256 (the
-//    forward's `ssd_wgmma` domain: mamba2-1.3b's training path), three
-//    kernels on wgmma + TMA (the section that holds them says how), then
-//    `ssd_bwd_dt` and `ssd_bwd_reduce` below.
+//  * `ssd_bwd_wgmma`, bf16 at P 64, N 64 or 128, chunk 64, 128 or 256 (the
+//    forward's `ssd_wgmma` domain: the training paths of mamba2-1.3b, N 128,
+//    and zamba2-1.2b, N 64), three kernels on wgmma + TMA (the section that
+//    holds them says how), then `ssd_bwd_dt` and `ssd_bwd_reduce` below.
 //  * `ssd_bwd_simt`, every other input and every fp32 one (which must hold
 //    the plain version to 1e-4): five kernels on the fp32 pipes, 4 x 4
 //    register tiles a thread, one after the other on the stream:
@@ -891,13 +891,19 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at P = 64, N = 128, chunk Q of 64, 128 or 256 (mamba2-1.3b's training
-// path): `ssd_bwd_wgmma`, three kernels on wgmma + TMA (hopper_sm90.cuh),
-// then ssd_bwd_dt and ssd_bwd_reduce above, which read the scratch these
-// write in the layout the fp32 kernels write it.
+// bf16 at P = 64, N = 64 NA (NA = 1 or 2 atoms of 64 state columns), chunk Q
+// of 64, 128 or 256 (the training paths of zamba2-1.2b, N 64, and
+// mamba2-1.3b, N 128): `ssd_bwd_wgmma`, three kernels on wgmma + TMA
+// (hopper_sm90.cuh), each templated on NA, then ssd_bwd_dt and
+// ssd_bwd_reduce above, which read the scratch these write in the layout the
+// fp32 kernels write it.  A row of B, C or a state is NA 128-byte swizzle
+// atoms, loaded as NA boxes of 64 columns; a product over N takes 4 NA
+// k-steps, a product whose columns are N one m64nN wgmma (n64 or n128).
 //  (A) `ssd_bwd_states_wgmma`, one block per (batch, head), two warpgroups
-//      that each hold half of the state's N columns in fp32 accumulator
-//      registers, as the forward's state pass (`ssd_state_wgmma`): the
+//      of which warpgroup wg < NA holds the state's columns 64 wg .. 64 wg +
+//      63 in fp32 accumulator registers (at N 64 the second one only shares
+//      the scan and the weighting), as the forward's state pass
+//      (`ssd_state_wgmma`): the
 //      forward recurrence h <- h exp(cum_last) + (x w)^T B over the chunks,
 //      w_j = dt_j exp(cum_last - cum_j), then the reverse one
 //      dh <- dh exp(cum_last) + (dy e)^T C from the last chunk down,
@@ -934,11 +940,11 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_reduce(BwdParams p) {
 // warpgroups that take alternate heads of its tile, each with two head slots
 // (the head's fixed tile, its state and its cum and dt) and a ring of two
 // 64-row tiles, which its thread 0 fills by TMA as soon as the warpgroup is
-// done with a slot (a warpgroup barrier).  No producer warp: (B) holds dB
-// (64 registers), du (32), both pair products (64) and their bf16 fragments
-// (32), and with a producer warp or warpgroup ptxas capped a thread at 168
-// registers (it counts 288 threads as 384), spilled, and serialized the
-// wgmmas (C7512); 256 threads leave 255.  The block's own tile
+// done with a slot (a warpgroup barrier).  No producer warp: at N 128 (B)
+// holds dB (64 registers; 32 at N 64), du (32), both pair products (64) and
+// their bf16 fragments (32), and with a producer warp or warpgroup ptxas
+// capped a thread at 168 registers (it counts 288 threads as 384), spilled,
+// and serialized the wgmmas (C7512); 256 threads leave 255.  The block's own tile
 // and the other operand's tiles of the group (B_j and C_i, i >= j, or C_i
 // and B_j, j <= i) stay in shared memory for all its heads.  The two
 // warpgroups' sums of dB or dC meet in shared memory in a fixed order.
@@ -952,7 +958,12 @@ constexpr int kStages = 4;  // ring of (A)
 constexpr int kNW = 2;      // consumer warpgroups of (B) and (C)
 constexpr int kRing = 2;    // 64-row tiles in each warpgroup's ring
 constexpr int kTileBytes = 8192;   // [64][64] bf16
-constexpr int kWideBytes = 16384;  // [2][64][64] bf16: 128 columns
+
+// [NA][64][64] bf16: a tile of N = 64 NA columns (B, C or a state)
+template <int NA>
+__host__ __device__ constexpr int wide_bytes() {
+  return NA * kTileBytes;
+}
 
 // Elements (r, col) and (r, col + 1) of a [atoms][64][64] swizzled tile, col
 // even: the 16-byte chunk c of row r sits at chunk c ^ (r % 8) of its atom.
@@ -983,23 +994,25 @@ __device__ __forceinline__ float warpgroup_sum(float v, float* red, int bar) {
   return total;
 }
 
+template <int NA>
 constexpr size_t states_smem_bytes() {
-  // slack; stages of x or dy [64][64] and B or C [2][64][64]; the lo part of
+  // slack; stages of x or dy [64][64] and B or C [NA][64][64]; the lo part of
   // the weighted tile; cum, dt and the weights of a chunk; warp sums (scan,
   // dot); barriers
-  return 1024 + kStages * 24576 + 8192 + 3 * 256 * 4 + 16 * 4 + kStages * 8;
+  return 1024 + kStages * (kTileBytes + wide_bytes<NA>()) + 8192 + 3 * 256 * 4 +
+         16 * 4 + kStages * 8;
 }
 
-template <int NT>  // NT = Q / 64 sub-tiles a chunk
+template <int NT, int NA>  // NT = Q / 64 sub-tiles a chunk, NA = N / 64
 __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
     const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUtensorMap tc,
     BwdParams p) {
-  constexpr int Q = NT * 64;
+  constexpr int Q = NT * 64, N = 64 * NA, kStage = kTileBytes + wide_bytes<NA>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
-  // stage s: x or dy at s * 24 KB, B or C (two 64-column atoms) 8 KB after it
-  bf16* Xlo = reinterpret_cast<bf16*>(base + kStages * 24576);  // [64][64]
+  // stage s: x or dy at s * kStage, B or C (NA 64-column atoms) 8 KB after it
+  bf16* Xlo = reinterpret_cast<bf16*>(base + kStages * kStage);  // [64][64]
   float* cum = reinterpret_cast<float*>(Xlo + 64 * 64);
   float* dts = cum + 256;
   float* wts = dts + 256;
@@ -1011,24 +1024,26 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
   const int H = p.H, S = p.S, nc = p.nc;
   const int grp = h / (H / p.G);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // warpgroup wg holds the state's columns 64 wg .. 64 wg + 63
+  // warpgroup wg holds the state's columns 64 wg .. 64 wg + 63, if wg < NA
   const int wg = tid / 128, wwarp = warp % 4;
+  const bool holds = NA == 2 || warp_index() < 4;
   const int g = lane / 4, qd = lane % 4;
   // units: the chunks' sub-tiles of (x, B) from the first chunk on, then of
   // (dy, C) from the last chunk down
   const int n_units = nc * NT;
 
   auto issue = [&](int u) {  // unit u into stage u % 4
-    unsigned char* st = base + (u % kStages) * 24576;
+    unsigned char* st = base + (u % kStages) * kStage;
     const bool fwd = u < n_units;
     const int v = fwd ? u : u - n_units;
     const int row = (fwd ? v / NT : nc - 1 - v / NT) * Q + (v % NT) * 64;
     const CUtensorMap* rows_map = fwd ? &tx : &tdy;
     const CUtensorMap* cols_map = fwd ? &tb : &tc;
-    mbar_expect_tx(full + u % kStages, 3 * 8192);
+    mbar_expect_tx(full + u % kStages, kStage);
     tma_load_4d(st, rows_map, full + u % kStages, 0, h, row, b);
-    tma_load_4d(st + 8192, cols_map, full + u % kStages, 0, grp, row, b);
-    tma_load_4d(st + 16384, cols_map, full + u % kStages, 64, grp, row, b);
+    for (int a = 0; a < NA; ++a)
+      tma_load_4d(st + kTileBytes * (1 + a), cols_map, full + u % kStages, 64 * a, grp,
+                  row, b);
   };
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
@@ -1038,11 +1053,12 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
   if (tid == 0)
     for (int u = 0; u < min(kStages, 2 * n_units); ++u) issue(u);
 
-  // this warpgroup's half of a [P, N] state in the accumulator layout: acc[i]
-  // is (p = 16 wwarp + g + 8 ((i/2)%2), n = 64 wg + 8 (i/4) + 2 qd + i%2)
-  const long long bh = ((long long)b * H + h) * 64 * 128;
+  // this warpgroup's 64 columns of a [P, N] state in the accumulator layout:
+  // acc[i] is (p = 16 wwarp + g + 8 ((i/2)%2), n = 64 wg + 8 (i/4) + 2 qd +
+  // i%2)
+  const long long bh = ((long long)b * H + h) * 64 * N;
   auto pos = [&](int i) {
-    return (wwarp * 16 + g + 8 * ((i / 2) % 2)) * 128 + 64 * wg + 8 * (i / 4) + 2 * qd;
+    return (wwarp * 16 + g + 8 * ((i / 2) % 2)) * N + 64 * wg + 8 * (i / 4) + 2 * qd;
   };
   const float a = p.A[h];
 
@@ -1084,7 +1100,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
     const int c = fwd ? q : 2 * nc - 1 - q;
     const float d = d_next;
     if (q + 1 < 2 * nc) d_next = load_dt(q + 1 < nc ? q + 1 : 2 * nc - 2 - q);
-    if (q == 0 || q == nc) {
+    if ((q == 0 || q == nc) && holds) {
       const float* from = fwd ? p.h0 : p.dhT;
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
@@ -1096,7 +1112,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
     }
     scan(d);
     const long long bch = ((long long)b * nc + c) * H + h;
-    const long long at = bch * 64 * 128;
+    const long long at = bch * 64 * N;
     const float cum_last = cum[Q - 1];
     const float decay = expf(cum_last);
     if (fwd) {
@@ -1106,11 +1122,13 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
         wts[tid] = dts[tid] * expf(cum_last - cum[tid]);
       }
       // h_c in bf16, then its decay over the chunk
+      if (holds) {
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        *reinterpret_cast<uint32_t*>(hb + at + pos(i)) = pack_bf16(acc[i], acc[i + 1]);
-        acc[i] *= decay;
-        acc[i + 1] *= decay;
+        for (int i = 0; i < 32; i += 2) {
+          *reinterpret_cast<uint32_t*>(hb + at + pos(i)) = pack_bf16(acc[i], acc[i + 1]);
+          acc[i] *= decay;
+          acc[i + 1] *= decay;
+        }
       }
       __syncthreads();  // wts is set
     } else {
@@ -1119,15 +1137,17 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
       // kernels read it (this thread wrote those elements in the forward
       // pass); then the decay
       float dot = 0.f;
+      if (holds) {
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        *reinterpret_cast<uint32_t*>(dhb + at + pos(i)) = pack_bf16(acc[i], acc[i + 1]);
-        const float2 hv =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hb + at + pos(i)));
-        dot = fmaf(hv.x, acc[i], dot);
-        dot = fmaf(hv.y, acc[i + 1], dot);
-        acc[i] *= decay;
-        acc[i + 1] *= decay;
+        for (int i = 0; i < 32; i += 2) {
+          *reinterpret_cast<uint32_t*>(dhb + at + pos(i)) = pack_bf16(acc[i], acc[i + 1]);
+          const float2 hv =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hb + at + pos(i)));
+          dot = fmaf(hv.x, acc[i], dot);
+          dot = fmaf(hv.y, acc[i + 1], dot);
+          acc[i] *= decay;
+          acc[i + 1] *= decay;
+        }
       }
       // the block's sum in one order: a tree within each warp, then the warps
 #pragma unroll
@@ -1143,7 +1163,7 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
 
     for (int t = 0; t < NT; ++t) {
       const int u = q * NT + t;
-      unsigned char* st = base + (u % kStages) * 24576;
+      unsigned char* st = base + (u % kStages) * kStage;
       mbar_wait(full + u % kStages, (u / kStages) & 1);
       // tile w -> hi (in place) and lo, 16 bytes at a time.  The swizzle only
       // permutes 16-byte chunks inside a 128-byte row, so chunk k belongs to
@@ -1170,43 +1190,48 @@ __global__ void __launch_bounds__(256) ssd_bwd_states_wgmma(
       __syncthreads();
       // A = (tile w)^T [P x 64 rows] MN-major, B = this warpgroup's 64
       // columns of the [64 rows x N] tile, MN-major
-      fence_regs(acc);
-      wgmma_fence();
+      if (holds) {
+        fence_regs(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = sw128_desc(st + 8192 + wg * 8192 + kk * 2048, 8192, 1024);
-        wgmma_ss_n64<1, 1>(acc, sw128_desc(st + kk * 2048, 8192, 1024), db, 1);
-        wgmma_ss_n64<1, 1>(acc, sw128_desc(reinterpret_cast<unsigned char*>(Xlo) + kk * 2048, 8192, 1024), db, 1);
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = sw128_desc(st + 8192 + wg * 8192 + kk * 2048, 8192, 1024);
+          wgmma_ss_n64<1, 1>(acc, sw128_desc(st + kk * 2048, 8192, 1024), db, 1);
+          wgmma_ss_n64<1, 1>(acc, sw128_desc(reinterpret_cast<unsigned char*>(Xlo) + kk * 2048, 8192, 1024), db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
       __syncthreads();  // stage u % 4 and Xlo are free
       if (tid == 0 && u + kStages < 2 * n_units) issue(u + kStages);
     }
   }
+  if (holds) {
 #pragma unroll
-  for (int i = 0; i < 32; i += 2)
-    *reinterpret_cast<float2*>(p.dh0 + bh + pos(i)) = make_float2(acc[i], acc[i + 1]);
+    for (int i = 0; i < 32; i += 2)
+      *reinterpret_cast<float2*>(p.dh0 + bh + pos(i)) = make_float2(acc[i], acc[i + 1]);
+  }
 }
 
-// Shared memory of (B) and (C): the block's own tile [2][64][64] and the
-// other operand's tiles [NT][2][64][64] (tile k at k * 16 KB); for each
+// Shared memory of (B) and (C): the block's own tile [NA][64][64] and the
+// other operand's tiles [NT][NA][64][64] (tile k at k * kWide); for each
 // consumer warpgroup two head slots, each the head's fixed tile [64][64], its
-// state [2][64][64] and its cum then dt [2][Q] fp32, and a ring of kRing
+// state [NA][64][64] and its cum then dt [2][Q] fp32, and a ring of kRing
 // [64][64] tiles; then the barriers and each warpgroup's reduction scratch.
-template <int NT>
+template <int NT, int NA>
 struct PairLayout {
+  static constexpr int kWide = wide_bytes<NA>();
   static constexpr int kCdt = ((NT * 512 + 1023) / 1024) * 1024;
-  static constexpr int kHead = kTileBytes + kWideBytes + kCdt;
-  static constexpr int kRes = kWideBytes * (1 + NT);
+  static constexpr int kHead = kTileBytes + kWide + kCdt;
+  static constexpr int kRes = kWide * (1 + NT);
   static constexpr int kPerWg = 2 * kHead + kRing * kTileBytes;
   static constexpr int kBars = 1 + kNW * (2 + kRing);
   static constexpr size_t kBytes = 1024 + kRes + kNW * kPerWg + 8 * kBars + 4 * 4 * kNW;
   static_assert(kBytes <= 232448, "more than 227 KB");
   static_assert(kHead % 1024 == 0, "1,024-byte atoms");
-  // the other warpgroup's sums of dB or dC (fp32, 64 a thread) fit its slots
-  static_assert(2 * kHead >= 64 * 128 * 4, "exchange");
+  // the other warpgroup's sums of dB or dC (fp32, 32 NA a thread) fit its slots
+  static_assert(2 * kHead >= 32 * NA * 128 * 4, "exchange");
 };
 
 // One block's barriers, each completed by TMA's byte count: res (the
@@ -1233,44 +1258,46 @@ struct PairItem {
 // tile from `fixed`, the state from `state`, cum and dt); and ring tile m of
 // warpgroup w (tile lo + m % (hi - lo) of `moving` for its head
 // m / (hi - lo)) into its ring slot m % kRing.
+template <int NA>
 __device__ __forceinline__ void load_resident(const PairItem& it, unsigned char* base,
                                               uint64_t* res, const CUtensorMap* own,
                                               const CUtensorMap* other) {
-  mbar_expect_tx(res, (1 + it.hi - it.lo) * kWideBytes);
-  tma_load_4d(base, own, res, 0, it.grp, it.c0 + it.t * 64, it.b);
-  tma_load_4d(base + kTileBytes, own, res, 64, it.grp, it.c0 + it.t * 64, it.b);
-  for (int k = it.lo; k < it.hi; ++k) {
-    unsigned char* dst = base + kWideBytes * (1 + k);
-    tma_load_4d(dst, other, res, 0, it.grp, it.c0 + k * 64, it.b);
-    tma_load_4d(dst + kTileBytes, other, res, 64, it.grp, it.c0 + k * 64, it.b);
+  constexpr int kWide = wide_bytes<NA>();
+  mbar_expect_tx(res, (1 + it.hi - it.lo) * kWide);
+  for (int a = 0; a < NA; ++a) {
+    tma_load_4d(base + a * kTileBytes, own, res, 64 * a, it.grp, it.c0 + it.t * 64, it.b);
+    for (int k = it.lo; k < it.hi; ++k)
+      tma_load_4d(base + kWide * (1 + k) + a * kTileBytes, other, res, 64 * a, it.grp,
+                  it.c0 + k * 64, it.b);
   }
 }
 
-template <int NT>
+template <int NT, int NA>
 __device__ __forceinline__ void load_head(const PairItem& it, const BwdParams& p, int w,
                                           int n, unsigned char* slots, uint64_t* hfull,
                                           const CUtensorMap* fixed,
                                           const CUtensorMap* state) {
-  constexpr int Q = NT * 64;
+  constexpr int Q = NT * 64, kWide = wide_bytes<NA>();
   const int s = n & 1, h = it.h_first + w + n * kNW;
-  unsigned char* hs = slots + s * PairLayout<NT>::kHead;
-  mbar_expect_tx(hfull + s, kTileBytes + kWideBytes + 2 * Q * 4);
+  unsigned char* hs = slots + s * PairLayout<NT, NA>::kHead;
+  mbar_expect_tx(hfull + s, kTileBytes + kWide + 2 * Q * 4);
   tma_load_4d(hs, fixed, hfull + s, 0, h, it.c0 + it.t * 64, it.b);
   const long long bch = ((long long)it.b * p.nc + it.c) * p.H + h;
-  tma_load_2d(hs + kTileBytes, state, hfull + s, 0, static_cast<int>(bch * 64));
-  tma_load_2d(hs + kTileBytes + 8192, state, hfull + s, 64, static_cast<int>(bch * 64));
-  bulk_load(hs + kTileBytes + kWideBytes, p.cum + bch * p.cum_ld, 2 * Q * 4, hfull + s);
+  for (int a = 0; a < NA; ++a)
+    tma_load_2d(hs + kTileBytes * (1 + a), state, hfull + s, 64 * a,
+                static_cast<int>(bch * 64));
+  bulk_load(hs + kTileBytes + kWide, p.cum + bch * p.cum_ld, 2 * Q * 4, hfull + s);
 }
 
-template <int NT>
+template <int NT, int NA>
 __device__ __forceinline__ void load_ring(const PairItem& it, int w, int m,
                                           unsigned char* slots, uint64_t* rfull,
                                           const CUtensorMap* moving) {
   const int cnt = it.hi - it.lo, r = m % kRing;
   const int h = it.h_first + w + (m / cnt) * kNW, k = it.lo + m % cnt;
   mbar_expect_tx(rfull + r, kTileBytes);
-  tma_load_4d(slots + 2 * PairLayout<NT>::kHead + r * kTileBytes, moving, rfull + r, 0,
-              h, it.c0 + k * 64, it.b);
+  tma_load_4d(slots + 2 * PairLayout<NT, NA>::kHead + r * kTileBytes, moving, rfull + r,
+              0, h, it.c0 + k * 64, it.b);
 }
 
 // The block's item of (B) or (C): the grid walks (tile, head tile, batch and
@@ -1300,21 +1327,21 @@ __device__ __forceinline__ PairItem pair_item(const BwdParams& p) {
   return it;
 }
 
-template <int NT>
-__device__ __forceinline__ void pair_init_barriers(uint64_t* bars) {
-  for (int i = 0; i < PairLayout<NT>::kBars; ++i) mbar_init(bars + i, 1);
+__device__ __forceinline__ void pair_init_barriers(uint64_t* bars, int count) {
+  for (int i = 0; i < count; ++i) mbar_init(bars + i, 1);
   mbar_fence_init();
 }
 
 // The two pair products of one (pair of tiles, head): k = own . other^T over
-// N (8 k-steps) and s = fixed . moving^T over P (4 k-steps), [64 x 64] each
+// N (4 NA k-steps) and s = fixed . moving^T over P (4 k-steps), [64 x 64] each
+template <int NA>
 __device__ __forceinline__ void pair_products(float (&k)[32], float (&s)[32],
                                               const bf16* own, const bf16* other,
                                               const bf16* fixed, const bf16* moving) {
   wgmma_fence();
   wgmma_ss_n64_first<0, 0>(k, kmajor<64>(own, 0), kmajor<64>(other, 0));
 #pragma unroll
-  for (int kk = 1; kk < 8; ++kk) wgmma_ss_n64<0, 0>(k, kmajor<64>(own, kk), kmajor<64>(other, kk), 1);
+  for (int kk = 1; kk < 4 * NA; ++kk) wgmma_ss_n64<0, 0>(k, kmajor<64>(own, kk), kmajor<64>(other, kk), 1);
   wgmma_ss_n64_first<0, 0>(s, kmajor<64>(fixed, 0), kmajor<64>(moving, 0));
 #pragma unroll
   for (int kk = 1; kk < 4; ++kk) wgmma_ss_n64<0, 0>(s, kmajor<64>(fixed, kk), kmajor<64>(moving, kk), 1);
@@ -1323,13 +1350,13 @@ __device__ __forceinline__ void pair_products(float (&k)[32], float (&s)[32],
 }
 
 // (B): du, dx, dB, s_j, x.du, the cum_j terms and their part of dA
-template <int NT>
+template <int NT, int NA>
 __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
     const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
     const __grid_constant__ CUtensorMap tdh, BwdParams p) {
-  using L = PairLayout<NT>;
-  constexpr int Q = NT * 64;
+  using L = PairLayout<NT, NA>;
+  constexpr int Q = NT * 64, N = 64 * NA, kWide = L::kWide;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kRes + kNW * L::kPerWg);
@@ -1337,7 +1364,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
   const PairItem it = pair_item<NT, false>(p);
   if (it.t >= it.n_valid) return;  // no valid row: the whole block leaves at once
   const int tid = threadIdx.x;
-  if (tid == 0) pair_init_barriers<NT>(bars);
+  if (tid == 0) pair_init_barriers(bars, L::kBars);
   __syncthreads();
 
   const int warp_id = warp_index();
@@ -1352,14 +1379,14 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
   // this warpgroup's heads, and its ring tiles: hi - lo a head
   const int n_heads = (p.heads - w + kNW - 1) / kNW, n_ring = n_heads * (it.hi - it.lo);
   if (t == 0) {
-    if (w == 0) load_resident(it, base, bar.res, &tb, &tc);
-    for (int n = 0; n < min(2, n_heads); ++n) load_head<NT>(it, p, w, n, slots, bar.hfull, &tx, &tdh);
-    for (int m = 0; m < min(kRing, n_ring); ++m) load_ring<NT>(it, w, m, slots, bar.rfull, &tdy);
+    if (w == 0) load_resident<NA>(it, base, bar.res, &tb, &tc);
+    for (int n = 0; n < min(2, n_heads); ++n) load_head<NT, NA>(it, p, w, n, slots, bar.hfull, &tx, &tdh);
+    for (int m = 0; m < min(kRing, n_ring); ++m) load_ring<NT, NA>(it, w, m, slots, bar.rfull, &tdy);
   }
 
-  float dB[64];  // dB_j [64 x N] of this warpgroup's heads
+  float dB[N / 2];  // dB_j [64 x N] of this warpgroup's heads
 #pragma unroll
-  for (int e = 0; e < 64; ++e) dB[e] = 0.f;
+  for (int e = 0; e < N / 2; ++e) dB[e] = 0.f;
   mbar_wait(bar.res, 0);
   int ring = 0;
   for (int n = 0;; ++n) {
@@ -1369,7 +1396,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
     const unsigned char* hs = slots + s * L::kHead;
     const bf16* Xj = reinterpret_cast<const bf16*>(hs);
     const bf16* dH = reinterpret_cast<const bf16*>(hs + kTileBytes);  // dh_{c+1} [P][N]
-    const float* cw = reinterpret_cast<const float*>(hs + kTileBytes + kWideBytes);
+    const float* cw = reinterpret_cast<const float*>(hs + kTileBytes + kWide);
     const float* dw = cw + Q;
     mbar_wait(bar.hfull + s, (n >> 1) & 1);
     float cj[2], dtj[2];  // cum and dt of this thread's rows
@@ -1384,14 +1411,14 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
     for (int i = it.lo; i < it.hi; ++i, ++ring) {
       const int r = ring % kRing;
       const bf16* Dy = reinterpret_cast<const bf16*>(slots + 2 * L::kHead + r * kTileBytes);
-      const bf16* Ci = reinterpret_cast<const bf16*>(base + kWideBytes * (1 + i));
+      const bf16* Ci = reinterpret_cast<const bf16*>(base + kWide * (1 + i));
       mbar_wait(bar.rfull + r, (ring / kRing) & 1);
       // kt = B_j C_i^T and xy = x_j dy_i^T: element e is row j = rA + 8
       // ((e / 2) % 2), column i = 8 (e / 4) + 2 qd + e % 2 of the tiles
       float kt[32], xy[32];
       fence_regs(du);
       fence_regs(dB);
-      pair_products(kt, xy, Bj, Ci, Xj, Dy);
+      pair_products<NA>(kt, xy, Bj, Ci, Xj, Dy);
       fence_regs(kt);
       fence_regs(xy);
       fence_regs(du);
@@ -1438,7 +1465,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
       for (int kk = 0; kk < 4; ++kk)
         wgmma_rs_n64<1>(du, ma[kk], mnmajor<64>(Dy, kk), i > j || kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128<1>(dB, ga[kk], mnmajor<64>(Ci, kk), 1);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_cols<N, kTileBytes>(dB, ga[kk], mnmajor<64>(Ci, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(du);
@@ -1450,7 +1477,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
       }
       named_barrier(1 + w, 128);  // the warpgroup is done with ring slot r
       if (t == 0 && ring + kRing < n_ring)
-        load_ring<NT>(it, w, ring + kRing, slots, bar.rfull, &tdy);
+        load_ring<NT, NA>(it, w, ring + kRing, slots, bar.rfull, &tdy);
     }
 
     // from dh_{c+1}: di = B_j dh^T [64 x P], weighted by exp(cum_last - cum_j)
@@ -1458,7 +1485,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
     wgmma_fence();
     wgmma_ss_n64_first<0, 0>(di, kmajor<64>(Bj, 0), kmajor<64>(dH, 0));
 #pragma unroll
-    for (int kk = 1; kk < 8; ++kk) wgmma_ss_n64<0, 0>(di, kmajor<64>(Bj, kk), kmajor<64>(dH, kk), 1);
+    for (int kk = 1; kk < 4 * NA; ++kk) wgmma_ss_n64<0, 0>(di, kmajor<64>(Bj, kk), kmajor<64>(dH, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(di);
@@ -1512,20 +1539,20 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
     if (t == 0) p.da_tile[bch * NT + j] = da;
 
     // dB_j += w dt_j x_j dh: x_j [64 x P] K-major, dh [P x N] MN-major
-    float xh[64];
+    float xh[N / 2];
     fence_regs(dB);
     wgmma_fence();
-    wgmma_ss_n128_first<0, 1>(xh, kmajor<64>(Xj, 0), mnmajor<64>(dH, 0));
+    wgmma_ss_cols_first<N, 0, 1>(xh, kmajor<64>(Xj, 0), mnmajor<64>(dH, 0));
 #pragma unroll
-    for (int kk = 1; kk < 4; ++kk) wgmma_ss_n128<0, 1>(xh, kmajor<64>(Xj, kk), mnmajor<64>(dH, kk), 1);
+    for (int kk = 1; kk < 4; ++kk) wgmma_ss_cols<N, 0, 1>(xh, kmajor<64>(Xj, kk), mnmajor<64>(dH, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(xh);
     named_barrier(1 + w, 128);  // the warpgroup is done with head slot s
-    if (t == 0 && n + 2 < n_heads) load_head<NT>(it, p, w, n + 2, slots, bar.hfull, &tx, &tdh);
+    if (t == 0 && n + 2 < n_heads) load_head<NT, NA>(it, p, w, n + 2, slots, bar.hfull, &tx, &tdh);
     const float wd[2] = {wj[0] * dtj[0], wj[1] * dtj[1]};
 #pragma unroll
-    for (int e = 0; e < 64; ++e) dB[e] = fmaf(xh[e], wd[(e / 2) % 2], dB[e]);
+    for (int e = 0; e < N / 2; ++e) dB[e] = fmaf(xh[e], wd[(e / 2) % 2], dB[e]);
   }
 
   // warpgroup 1 hands its dB to warpgroup 0 through its own (spent) slots;
@@ -1533,7 +1560,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
   float* xch = reinterpret_cast<float*>(base + L::kRes + L::kPerWg);
   if (w == 1) {
 #pragma unroll
-    for (int e = 0; e < 64; ++e) xch[e * 128 + t] = dB[e];
+    for (int e = 0; e < N / 2; ++e) xch[e * 128 + t] = dB[e];
   }
   named_barrier(3, 256);
   if (w == 1) return;
@@ -1543,9 +1570,9 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
     const int row = j * 64 + rA + 8 * hf;
     if (row >= it.rows) continue;
     float* out = p.db_part +
-                 (((long long)it.b * S + it.c0 + row) * n_ht + it.ht) * 128 + 2 * qd;
+                 (((long long)it.b * S + it.c0 + row) * n_ht + it.ht) * N + 2 * qd;
 #pragma unroll
-    for (int nn = 0; nn < 16; ++nn) {
+    for (int nn = 0; nn < N / 8; ++nn) {
       const int e = 4 * nn + 2 * hf;
       *reinterpret_cast<float2*>(out + nn * 8) =
           make_float2(dB[e] + xch[e * 128 + t], dB[e + 1] + xch[(e + 1) * 128 + t]);
@@ -1554,13 +1581,13 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dxdb_wgmma(
 }
 
 // (C): dC, the cum_i terms and the rest of dA
-template <int NT>
+template <int NT, int NA>
 __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
     const __grid_constant__ CUtensorMap tdy, const __grid_constant__ CUtensorMap tx,
     const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tb,
     const __grid_constant__ CUtensorMap th, BwdParams p) {
-  using L = PairLayout<NT>;
-  constexpr int Q = NT * 64;
+  using L = PairLayout<NT, NA>;
+  constexpr int Q = NT * 64, N = 64 * NA, kWide = L::kWide;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kRes + kNW * L::kPerWg);
@@ -1568,7 +1595,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
   const PairItem it = pair_item<NT, true>(p);
   if (it.t >= it.n_valid) return;  // no valid row: the whole block leaves at once
   const int tid = threadIdx.x;
-  if (tid == 0) pair_init_barriers<NT>(bars);
+  if (tid == 0) pair_init_barriers(bars, L::kBars);
   __syncthreads();
 
   const int warp_id = warp_index();
@@ -1582,14 +1609,14 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
   const int S = p.S, H = p.H;
   const int n_heads = (p.heads - w + kNW - 1) / kNW, n_ring = n_heads * (it.hi - it.lo);
   if (t == 0) {
-    if (w == 0) load_resident(it, base, bar.res, &tc, &tb);
-    for (int n = 0; n < min(2, n_heads); ++n) load_head<NT>(it, p, w, n, slots, bar.hfull, &tdy, &th);
-    for (int m = 0; m < min(kRing, n_ring); ++m) load_ring<NT>(it, w, m, slots, bar.rfull, &tx);
+    if (w == 0) load_resident<NA>(it, base, bar.res, &tc, &tb);
+    for (int n = 0; n < min(2, n_heads); ++n) load_head<NT, NA>(it, p, w, n, slots, bar.hfull, &tdy, &th);
+    for (int m = 0; m < min(kRing, n_ring); ++m) load_ring<NT, NA>(it, w, m, slots, bar.rfull, &tx);
   }
 
-  float dC[64];  // dC_i [64 x N] of this warpgroup's heads
+  float dC[N / 2];  // dC_i [64 x N] of this warpgroup's heads
 #pragma unroll
-  for (int e = 0; e < 64; ++e) dC[e] = 0.f;
+  for (int e = 0; e < N / 2; ++e) dC[e] = 0.f;
   mbar_wait(bar.res, 0);
   int ring = 0;
   for (int n = 0;; ++n) {
@@ -1599,7 +1626,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
     const unsigned char* hs = slots + s * L::kHead;
     const bf16* Dy = reinterpret_cast<const bf16*>(hs);
     const bf16* Hc = reinterpret_cast<const bf16*>(hs + kTileBytes);  // h_c [P][N]
-    const float* cw = reinterpret_cast<const float*>(hs + kTileBytes + kWideBytes);
+    const float* cw = reinterpret_cast<const float*>(hs + kTileBytes + kWide);
     const float* dw = cw + Q;
     mbar_wait(bar.hfull + s, (n >> 1) & 1);
     const float ci[2] = {cw[i * 64 + rA], cw[i * 64 + rA + 8]};
@@ -1609,13 +1636,13 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
     for (int j = it.lo; j < it.hi; ++j, ++ring) {
       const int r = ring % kRing;
       const bf16* Xj = reinterpret_cast<const bf16*>(slots + 2 * L::kHead + r * kTileBytes);
-      const bf16* Bj = reinterpret_cast<const bf16*>(base + kWideBytes * (1 + j));
+      const bf16* Bj = reinterpret_cast<const bf16*>(base + kWide * (1 + j));
       mbar_wait(bar.rfull + r, (ring / kRing) & 1);
       // kk_ = C_i B_j^T and yx = dy_i x_j^T: element e is row i = rA + 8
       // ((e / 2) % 2), column j = 8 (e / 4) + 2 qd + e % 2 of the tiles
       float kv[32], yx[32];
       fence_regs(dC);
-      pair_products(kv, yx, Ci, Bj, Dy, Xj);
+      pair_products<NA>(kv, yx, Ci, Bj, Dy, Xj);
       fence_regs(kv);
       fence_regs(yx);
       fence_regs(dC);
@@ -1652,7 +1679,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
       fence_regs(dC);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_rs_n128<1>(dC, ga[kk], mnmajor<64>(Bj, kk), 1);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_cols<N, kTileBytes>(dC, ga[kk], mnmajor<64>(Bj, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dC);
@@ -1660,26 +1687,26 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
       for (int kk = 0; kk < 4; ++kk) fence_regs(ga[kk]);
       named_barrier(1 + w, 128);  // the warpgroup is done with ring slot r
       if (t == 0 && ring + kRing < n_ring)
-        load_ring<NT>(it, w, ring + kRing, slots, bar.rfull, &tx);
+        load_ring<NT, NA>(it, w, ring + kRing, slots, bar.rfull, &tx);
     }
 
     // from h_c: dC_inter = exp(cum_i) dy_i h_c; dy_i . y_inter_i is
     // C_i . dC_inter_i
-    float yh[64];
+    float yh[N / 2];
     wgmma_fence();
-    wgmma_ss_n128_first<0, 1>(yh, kmajor<64>(Dy, 0), mnmajor<64>(Hc, 0));
+    wgmma_ss_cols_first<N, 0, 1>(yh, kmajor<64>(Dy, 0), mnmajor<64>(Hc, 0));
 #pragma unroll
-    for (int kk = 1; kk < 4; ++kk) wgmma_ss_n128<0, 1>(yh, kmajor<64>(Dy, kk), mnmajor<64>(Hc, kk), 1);
+    for (int kk = 1; kk < 4; ++kk) wgmma_ss_cols<N, 0, 1>(yh, kmajor<64>(Dy, kk), mnmajor<64>(Hc, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(yh);
     fence_regs(dC);
     named_barrier(1 + w, 128);  // the warpgroup is done with head slot s
-    if (t == 0 && n + 2 < n_heads) load_head<NT>(it, p, w, n + 2, slots, bar.hfull, &tdy, &th);
+    if (t == 0 && n + 2 < n_heads) load_head<NT, NA>(it, p, w, n + 2, slots, bar.hfull, &tdy, &th);
     const float ei[2] = {expf(ci[0]), expf(ci[1])};
     float yt[2] = {0.f, 0.f};
 #pragma unroll
-    for (int e = 0; e < 64; e += 2) {
+    for (int e = 0; e < N / 2; e += 2) {
       const int hf = (e / 2) % 2, col = 8 * (e / 4) + 2 * qd;
       const float2 cv = tile_pair(Ci, rA + 8 * hf, col);
       const float v0 = yh[e] * ei[hf], v1 = yh[e + 1] * ei[hf];
@@ -1711,7 +1738,7 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
   float* xch = reinterpret_cast<float*>(base + L::kRes + L::kPerWg);
   if (w == 1) {
 #pragma unroll
-    for (int e = 0; e < 64; ++e) xch[e * 128 + t] = dC[e];
+    for (int e = 0; e < N / 2; ++e) xch[e * 128 + t] = dC[e];
   }
   named_barrier(3, 256);
   if (w == 1) return;
@@ -1721,9 +1748,9 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
     const int row = i * 64 + rA + 8 * hf;
     if (row >= it.rows) continue;
     float* out = p.dc_part +
-                 (((long long)it.b * S + it.c0 + row) * n_ht + it.ht) * 128 + 2 * qd;
+                 (((long long)it.b * S + it.c0 + row) * n_ht + it.ht) * N + 2 * qd;
 #pragma unroll
-    for (int nn = 0; nn < 16; ++nn) {
+    for (int nn = 0; nn < N / 8; ++nn) {
       const int e = 4 * nn + 2 * hf;
       *reinterpret_cast<float2*>(out + nn * 8) =
           make_float2(dC[e] + xch[e * 128 + t], dC[e + 1] + xch[(e + 1) * 128 + t]);
@@ -1731,22 +1758,23 @@ __global__ void __launch_bounds__(128 * kNW, 1) ssd_bwd_dc_wgmma(
   }
 }
 
-// x and dy [B, S, H, 64], B and C [B, S, G, 128] as 4-D maps (columns, head
-// or group, sequence, batch), boxes of 64 columns x 64 rows; h_c and dh_{c+1}
-// [B nc H 64, 128] as 2-D maps, boxes of 64 x 64.
+// x and dy [B, S, H, 64], B and C [B, S, G, N] as 4-D maps (columns, head
+// or group, sequence, batch), boxes of 64 columns x 64 rows (a row of B or C
+// is N / 64 boxes); h_c and dh_{c+1} [B nc H 64, N] as 2-D maps, boxes of
+// 64 x 64.
 struct BwdMaps {
   CUtensorMap x, dy, b, c, hb, dhb;
 };
 
 bool bwd_maps(const BwdParams& p, BwdMaps* m) {
   const cuuint32_t box4[4] = {64, 1, 64, 1}, box2[2] = {64, 64};
-  const cuuint64_t B = p.batch, S = p.S, H = p.H, G = p.G;
+  const cuuint64_t B = p.batch, S = p.S, H = p.H, G = p.G, N = p.N;
   const cuuint64_t dx[4] = {64, H, S, B};
   const cuuint64_t sx[3] = {64 * 2, H * 64 * 2, S * H * 64 * 2};
-  const cuuint64_t dbc[4] = {128, G, S, B};
-  const cuuint64_t sbc[3] = {128 * 2, G * 128 * 2, S * G * 128 * 2};
-  const cuuint64_t dh[2] = {128, B * p.nc * H * 64};
-  const cuuint64_t sh[1] = {128 * 2};
+  const cuuint64_t dbc[4] = {N, G, S, B};
+  const cuuint64_t sbc[3] = {N * 2, G * N * 2, S * G * N * 2};
+  const cuuint64_t dh[2] = {N, B * p.nc * H * 64};
+  const cuuint64_t sh[1] = {N * 2};
   return make_map_bf16(&m->x, p.x, 4, dx, sx, box4) &&
          make_map_bf16(&m->dy, p.dy, 4, dx, sx, box4) &&
          make_map_bf16(&m->b, p.b, 4, dbc, sbc, box4) &&
@@ -1755,33 +1783,42 @@ bool bwd_maps(const BwdParams& p, BwdMaps* m) {
          make_map_bf16(&m->dhb, p.dhb, 2, dh, sh, box2);
 }
 
-template <int NT>
+template <int NT, int NA>
 cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
-  constexpr size_t smem_a = states_smem_bytes(), smem_bc = PairLayout<NT>::kBytes;
+  constexpr size_t smem_a = states_smem_bytes<NA>(), smem_bc = PairLayout<NT, NA>::kBytes;
   static const cudaError_t attr_a = cudaFuncSetAttribute(
-      ssd_bwd_states_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_bwd_states_wgmma<NT, NA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_a));
   static const cudaError_t attr_b = cudaFuncSetAttribute(
-      ssd_bwd_dxdb_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_bwd_dxdb_wgmma<NT, NA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bc));
   static const cudaError_t attr_c = cudaFuncSetAttribute(
-      ssd_bwd_dc_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_bwd_dc_wgmma<NT, NA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bc));
   if (attr_a != cudaSuccess) return attr_a;
   if (attr_b != cudaSuccess) return attr_b;
   if (attr_c != cudaSuccess) return attr_c;
   BwdMaps m;
   if (!bwd_maps(p, &m)) return cudaErrorInvalidValue;
-  ssd_bwd_states_wgmma<NT><<<dim3(p.H, p.batch), 256, smem_a, stream>>>(m.x, m.b, m.dy, m.c, p);
+  ssd_bwd_states_wgmma<NT, NA><<<dim3(p.H, p.batch), 256, smem_a, stream>>>(m.x, m.b, m.dy, m.c, p);
   cudaError_t e = counted(cudaGetLastError(), kStatesWgmma);
   if (e != cudaSuccess) return e;
   // the column owner first: the row owner adds to what it writes
   const unsigned grid = static_cast<unsigned>(NT) * p.batch * p.nc * (p.H / p.heads);
-  ssd_bwd_dxdb_wgmma<NT><<<grid, 128 * kNW, smem_bc, stream>>>(m.x, m.dy, m.b, m.c, m.dhb, p);
+  ssd_bwd_dxdb_wgmma<NT, NA><<<grid, 128 * kNW, smem_bc, stream>>>(m.x, m.dy, m.b, m.c, m.dhb, p);
   e = counted(cudaGetLastError(), kDxdbWgmma);
   if (e != cudaSuccess) return e;
-  ssd_bwd_dc_wgmma<NT><<<grid, 128 * kNW, smem_bc, stream>>>(m.dy, m.x, m.c, m.b, m.hb, p);
+  ssd_bwd_dc_wgmma<NT, NA><<<grid, 128 * kNW, smem_bc, stream>>>(m.dy, m.x, m.c, m.b, m.hb, p);
   return counted(cudaGetLastError(), kDcWgmma);
+}
+
+template <int NA>
+cudaError_t launch_wgmma_q(const BwdParams& p, cudaStream_t stream) {
+  switch (p.Q) {
+    case 64: return launch_wgmma<1, NA>(p, stream);
+    case 128: return launch_wgmma<2, NA>(p, stream);
+    default: return launch_wgmma<4, NA>(p, stream);
+  }
 }
 
 // Heads a block of pass 3 serves: the largest of 8, 4, 2, 1 that divides the
@@ -1879,12 +1916,12 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
 }
 
 // Whether `variant` has kernels for these sizes (dtype aside): the fp32 pipes
-// every size the wrapper takes, wgmma only P 64, N 128, chunk 64 and up.
+// every size the wrapper takes, wgmma only P 64, N 64 or 128, chunk 64 and up.
 bool takes(int batch, int S, int H, int G, int P, int N, int Q, int variant) {
   const bool sizes = batch >= 1 && S >= 1 && (Q == 32 || Q == 64 || Q == 128 || Q == 256) &&
                      P >= 4 && P % 4 == 0 && P <= kMaxP && N >= 4 && N % 4 == 0 &&
                      N <= kMaxN && G >= 1 && H >= G && H % G == 0;
-  if (variant == kBwdWgmma) return sizes && P == 64 && N == 128 && Q >= 64;
+  if (variant == kBwdWgmma) return sizes && P == 64 && (N == 64 || N == 128) && Q >= 64;
   return sizes && variant == kBwdFp32Pipes;
 }
 
@@ -1903,8 +1940,8 @@ extern "C" long long ssd_bwd_scratch_floats(int batch, int S, int H, int G,
 // dhT may be null (a zero state, a zero gradient); dh0 is always written.
 // `scratch` holds ssd_bwd_scratch_floats() floats for `variant`, the
 // wrapper's choice (kernel.variant_bwd): 0 = the five kernels on the fp32
-// pipes; 1 = the three wgmma kernels and the last two, bf16 at P 64, N 128,
-// Q >= 64 only, with x, B, C and dy on 16-byte boundaries (TMA; the wrapper
+// pipes; 1 = the three wgmma kernels and the last two, bf16 at P 64, N 64 or
+// 128, Q >= 64 only, with x, B, C and dy on 16-byte boundaries (TMA; the wrapper
 // checks).  Returns the launches' cudaError_t as an int
 // (cudaErrorInvalidValue for a variant that cannot take these inputs).
 extern "C" int ssd_bwd(const void* x, const float* dt, const float* A,
@@ -1928,12 +1965,7 @@ extern "C" int ssd_bwd(const void* x, const float* dt, const float* A,
   carve(batch, S, H, G, P, N, Q, variant, &p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kBwdWgmma) {
-    cudaError_t e;
-    switch (Q) {
-      case 64: e = launch_wgmma<1>(p, s); break;
-      case 128: e = launch_wgmma<2>(p, s); break;
-      default: e = launch_wgmma<4>(p, s); break;
-    }
+    const cudaError_t e = N == 64 ? launch_wgmma_q<1>(p, s) : launch_wgmma_q<2>(p, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(launch_tail<__nv_bfloat16>(p, s));
   }

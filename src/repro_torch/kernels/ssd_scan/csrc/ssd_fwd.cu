@@ -19,9 +19,10 @@
 // GFLOP that the algorithm needs, 0.03 ms at the bf16 tensor-core peak: the
 // bound is bytes.  The kernels that run are fixed by (dtype, P, N, chunk); the
 // rule is the wrapper's `kernel.variant()`, which passes its choice in:
-//  * bf16 at P = 64, N = 128, chunk 64, 128 or 256 (the serving path): two
-//    kernels on wgmma and TMA, `ssd_state_wgmma` then `ssd_out_wgmma` (see
-//    the section below).  The split writes the bf16 state before each chunk
+//  * bf16 at P = 64, N = 64 or 128, chunk 64, 128 or 256 (the serving paths
+//    of mamba2-1.3b, N 128, and zamba2-1.2b, N 64): two kernels on wgmma and
+//    TMA, `ssd_state_wgmma` then `ssd_out_wgmma` (see the section below),
+//    templated on NA = N / 64, the state's 64-column atoms.  The split writes the bf16 state before each chunk
 //    and cum to device memory and reads them back, some 35 MB each way,
 //    which puts this design's own floor near 0.07 ms; in exchange C.B^T is
 //    computed once per 16 heads of a group, not once per head, and the
@@ -364,11 +365,18 @@ cudaError_t launch_t(const SsdParams& p, int batch, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 path at the serving shape (P = 64, N = 128, chunk Q of 64, 128 or
-// 256): two kernels on wgmma and TMA (hopper_sm90.cuh), one after the other
-// on the stream, splitting the work the way the plain version spells it out.
-//  (A) `ssd_state_wgmma`, one block per (batch, head), two warpgroups that
-//      each hold half of the state's N columns,
+// bf16 path at the serving shapes (P = 64, N = 64 NA with NA = 1 or 2 atoms
+// of 64 state columns, chunk Q of 64, 128 or 256): two kernels on wgmma and
+// TMA (hopper_sm90.cuh), one after the other on the stream, splitting the
+// work the way the plain version spells it out.  A row of B or C is NA
+// 128-byte swizzle atoms; every tile of them, and h_before, is loaded as NA
+// boxes of 64 columns, and every product that reduces over N takes 4 NA
+// k-steps.
+//  (A) `ssd_state_wgmma`, one block per (batch, head), 256 threads; warpgroup
+//      wg < NA holds the state's columns 64 wg .. 64 wg + 63 (at N 64 the
+//      second warpgroup holds none: it shares the scan and the weighting of
+//      x, and the one m64n64 product a k-step does the tensor work that two
+//      m64n32 would, without an operand that starts inside a swizzle atom),
 //      looping over the chunks: cum = cumsum(dt A) by a warp-parallel scan,
 //      written out with dt [B, nc, H, 2, Q] fp32; the state before each chunk written
 //      out [B, nc, H, P, N] in bf16 (C.h rounded it to bf16 before as well);
@@ -411,22 +419,30 @@ struct SsdTma {
   int heads;        // heads of a block of (B)
 };
 
-constexpr size_t state_smem_bytes() {
-  // slack; stages of x [64][64] and B [2][64][64]; the lo part of x w; cum,
-  // dt and w of a chunk; warp sums; barriers
-  return 1024 + kStages * 3 * 8192 + 8192 + 3 * 256 * 4 + 8 * 4 + kStages * 8;
+// a stage of (A)'s ring: x [64][64] and the rows of B, [NA][64][64]
+template <int NA>
+__host__ __device__ constexpr int state_stage_bytes() {
+  return 8192 * (1 + NA);
 }
 
-template <int NT>  // NT = Q / 64 sub-tiles a chunk
+template <int NA>
+constexpr size_t state_smem_bytes() {
+  // slack; the stages; the lo part of x w; cum, dt and w of a chunk; warp
+  // sums; barriers
+  return 1024 + kStages * state_stage_bytes<NA>() + 8192 + 3 * 256 * 4 + 8 * 4 +
+         kStages * 8;
+}
+
+template <int NT, int NA>  // NT = Q / 64 sub-tiles a chunk, NA = N / 64
 __global__ void __launch_bounds__(256) ssd_state_wgmma(
     const __grid_constant__ CUtensorMap tx,
     const __grid_constant__ CUtensorMap tb, SsdTma p) {
   using bf16 = __nv_bfloat16;
-  constexpr int Q = NT * 64;
+  constexpr int Q = NT * 64, N = 64 * NA, kStage = state_stage_bytes<NA>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
-  // stage s: x at s * 24 KB, B (two 64-column atoms) 8 KB after it
-  bf16* Xlo = reinterpret_cast<bf16*>(base + kStages * 24576);  // [64][64]
+  // stage s: x at s * kStage, B (NA 64-column atoms) 8 KB after it
+  bf16* Xlo = reinterpret_cast<bf16*>(base + kStages * kStage);  // [64][64]
   float* cum = reinterpret_cast<float*>(Xlo + 64 * 64);
   float* dts = cum + 256;
   float* wts = dts + 256;
@@ -437,19 +453,20 @@ __global__ void __launch_bounds__(256) ssd_state_wgmma(
   const int H = p.H, S = p.S, nc = p.nc;
   const int grp = h / (H / p.G);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // warpgroup wg holds the state's columns 64 wg .. 64 wg + 63
+  // warpgroup wg holds the state's columns 64 wg .. 64 wg + 63, if wg < NA
   const int wg = tid / 128, wwarp = warp % 4;
+  const bool holds = NA == 2 || warp_index() < 4;
   const int g = lane / 4, qd = lane % 4;
   const int n_units = nc * NT;
 
-  auto stage = [&](int s) { return base + s * 24576; };
+  auto stage = [&](int s) { return base + s * kStage; };
   auto issue = [&](int u) {  // sub-tile u of the sequence into stage u % 4
     unsigned char* st = stage(u % kStages);
     const int row = u * 64;  // = chunk * Q + sub-tile * 64
-    mbar_expect_tx(full + u % kStages, 3 * 8192);
+    mbar_expect_tx(full + u % kStages, kStage);
     tma_load_4d(st, &tx, full + u % kStages, 0, h, row, b);
-    tma_load_4d(st + 8192, &tb, full + u % kStages, 0, grp, row, b);
-    tma_load_4d(st + 16384, &tb, full + u % kStages, 64, grp, row, b);
+    for (int a = 0; a < NA; ++a)
+      tma_load_4d(st + 8192 * (1 + a), &tb, full + u % kStages, 64 * a, grp, row, b);
   };
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
@@ -459,19 +476,22 @@ __global__ void __launch_bounds__(256) ssd_state_wgmma(
   if (tid == 0)
     for (int u = 0; u < min(kStages, n_units); ++u) issue(u);
 
-  // this warpgroup's half of h [P, N] in the accumulator layout: hacc[i] is
-  // (p = 16 wwarp + g + 8 ((i/2)%2), n = 64 wg + 8 (i/4) + 2 qd + i%2)
+  // this warpgroup's 64 columns of h [P, N] in the accumulator layout:
+  // hacc[i] is (p = 16 wwarp + g + 8 ((i/2)%2), n = 64 wg + 8 (i/4) + 2 qd +
+  // i%2)
   float hacc[32];
-  const long long st_off = ((long long)b * H + h) * 64 * 128;
+  const long long st_off = ((long long)b * H + h) * 64 * N;
   auto pos = [&](int i) {
-    return (wwarp * 16 + g + 8 * ((i / 2) % 2)) * 128 + 64 * wg + 8 * (i / 4) + 2 * qd;
+    return (wwarp * 16 + g + 8 * ((i / 2) % 2)) * N + 64 * wg + 8 * (i / 4) + 2 * qd;
   };
+  if (holds) {
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    float2 v = make_float2(0.f, 0.f);
-    if (p.h0) v = *reinterpret_cast<const float2*>(p.h0 + st_off + pos(i));
-    hacc[i] = v.x;
-    hacc[i + 1] = v.y;
+    for (int i = 0; i < 32; i += 2) {
+      float2 v = make_float2(0.f, 0.f);
+      if (p.h0) v = *reinterpret_cast<const float2*>(p.h0 + st_off + pos(i));
+      hacc[i] = v.x;
+      hacc[i + 1] = v.y;
+    }
   }
   const float a = p.A[h];
   // dt of a chunk, 0 past S; loaded one chunk ahead
@@ -507,13 +527,15 @@ __global__ void __launch_bounds__(256) ssd_state_wgmma(
       wts[tid] = dts[tid] * expf(cum_last - cum[tid]);
     }
     // the state before this chunk, in bf16, then its decay over the chunk
-    bf16* hb = p.hb + (((long long)b * nc + c) * H + h) * 64 * 128;
+    bf16* hb = p.hb + (((long long)b * nc + c) * H + h) * 64 * N;
     const float decay = expf(cum_last);
+    if (holds) {
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      *reinterpret_cast<uint32_t*>(hb + pos(i)) = pack_bf16(hacc[i], hacc[i + 1]);
-      hacc[i] *= decay;
-      hacc[i + 1] *= decay;
+      for (int i = 0; i < 32; i += 2) {
+        *reinterpret_cast<uint32_t*>(hb + pos(i)) = pack_bf16(hacc[i], hacc[i + 1]);
+        hacc[i] *= decay;
+        hacc[i + 1] *= decay;
+      }
     }
     __syncthreads();  // wts is set
 
@@ -546,50 +568,56 @@ __global__ void __launch_bounds__(256) ssd_state_wgmma(
       __syncthreads();
       // h^T += (x w)^T B: A = (x w)^T [P x 64 rows] MN-major, B = this
       // warpgroup's 64 columns of B [64 rows x N] MN-major
-      fence_regs(hacc);
-      wgmma_fence();
+      if (holds) {
+        fence_regs(hacc);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t db = sw128_desc(st + 8192 + wg * 8192 + kk * 2048, 8192, 1024);
-        wgmma_ss_n64<1, 1>(hacc, sw128_desc(st + kk * 2048, 8192, 1024), db, 1);
-        wgmma_ss_n64<1, 1>(hacc, sw128_desc(reinterpret_cast<unsigned char*>(Xlo) + kk * 2048, 8192, 1024), db, 1);
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = sw128_desc(st + 8192 + wg * 8192 + kk * 2048, 8192, 1024);
+          wgmma_ss_n64<1, 1>(hacc, sw128_desc(st + kk * 2048, 8192, 1024), db, 1);
+          wgmma_ss_n64<1, 1>(hacc, sw128_desc(reinterpret_cast<unsigned char*>(Xlo) + kk * 2048, 8192, 1024), db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(hacc);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(hacc);
       __syncthreads();  // stage u % 4 and Xlo are free
       if (tid == 0 && u + kStages < n_units) issue(u + kStages);
     }
   }
 
+  if (holds) {
 #pragma unroll
-  for (int i = 0; i < 32; i += 2)
-    *reinterpret_cast<float2*>(p.hT + st_off + pos(i)) = make_float2(hacc[i], hacc[i + 1]);
+    for (int i = 0; i < 32; i += 2)
+      *reinterpret_cast<float2*>(p.hT + st_off + pos(i)) = make_float2(hacc[i], hacc[i + 1]);
+  }
 }
 
-template <int NT>
+template <int NT, int NA>
 struct OutLayout {
-  // C [2][64][64] bf16; C.B^T [NT][64][kLdCB] bf16; a ring of three stages,
-  // each x [NT][64][64] + h_before [2][64][64] bf16 + cum and dt [2][Q] fp32.
-  // The B tiles [NT][2][64][64] wait in stages 1 and 2 until C.B^T is done.
-  static constexpr int kC = 16384;
+  // C [NA][64][64] bf16; C.B^T [NT][64][kLdCB] bf16; a ring of three stages,
+  // each x [NT][64][64] + h_before [NA][64][64] bf16 + cum and dt [2][Q]
+  // fp32.  The B tiles [NT][NA][64][64] wait in stages 1 and 2 until C.B^T
+  // is done.
+  static constexpr int kWide = NA * 8192;  // [NA][64][64] bf16: N columns
+  static constexpr int kC = kWide;
   static constexpr int kCB = NT * 64 * kLdCB * 2;
-  static constexpr int kStage = NT * 8192 + 16384 + ((NT * 512 + 1023) / 1024) * 1024;
+  static constexpr int kStage = NT * 8192 + kWide + ((NT * 512 + 1023) / 1024) * 1024;
   static constexpr int kRing = kC + kCB;
   static constexpr size_t kBytes = 1024 + kRing + 3 * kStage + 8 * 24;
   static_assert(kCB % 1024 == 0 && kStage % 1024 == 0, "1,024-byte atoms");
-  static_assert(NT * 16384 <= 2 * kStage, "B tiles fit in stages 1 and 2");
+  static_assert(NT * kWide <= 2 * kStage, "B tiles fit in stages 1 and 2");
 };
 
-template <int NT>
+template <int NT, int NA>
 __global__ void __launch_bounds__(288, 1) ssd_out_wgmma(
     const __grid_constant__ CUtensorMap tx,
     const __grid_constant__ CUtensorMap tb,
     const __grid_constant__ CUtensorMap tc,
     const __grid_constant__ CUtensorMap thb, SsdTma p) {
   using bf16 = __nv_bfloat16;
-  using L = OutLayout<NT>;
-  constexpr int Q = NT * 64;
+  using L = OutLayout<NT, NA>;
+  constexpr int Q = NT * 64, kWide = L::kWide;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   unsigned char* Cs = base;
@@ -637,22 +665,21 @@ __global__ void __launch_bounds__(288, 1) ssd_out_wgmma(
     auto issue_head = [&](int i) {  // head h_first + i into stage i % 3
       const int hh = h_first + i;
       unsigned char* st = ring + (i % 3) * L::kStage;
-      mbar_expect_tx(full + i, (r + 1) * 8192 + 16384 + 2 * Q * 4);
+      mbar_expect_tx(full + i, (r + 1) * 8192 + kWide + 2 * Q * 4);
       for (int k = 0; k <= r; ++k)
         tma_load_4d(st + k * 8192, &tx, full + i, 0, hh, c0 + k * 64, b);
       const int hrow = ((b * nc + c) * H + hh) * 64;
-      tma_load_2d(st + NT * 8192, &thb, full + i, 0, hrow);
-      tma_load_2d(st + NT * 8192 + 8192, &thb, full + i, 64, hrow);
-      bulk_load(st + NT * 8192 + 16384,
+      for (int a = 0; a < NA; ++a)
+        tma_load_2d(st + NT * 8192 + a * 8192, &thb, full + i, 64 * a, hrow);
+      bulk_load(st + NT * 8192 + kWide,
                 p.cdt + (((long long)b * nc + c) * H + hh) * 2 * Q, 2 * Q * 4,
                 full + i);
     };
-    mbar_expect_tx(cbar, (r + 2) * 16384);
-    tma_load_4d(Cs, &tc, cbar, 0, grp, row0, b);
-    tma_load_4d(Cs + 8192, &tc, cbar, 64, grp, row0, b);
-    for (int k = 0; k <= r; ++k) {
-      tma_load_4d(Bt + k * 16384, &tb, cbar, 0, grp, c0 + k * 64, b);
-      tma_load_4d(Bt + k * 16384 + 8192, &tb, cbar, 64, grp, c0 + k * 64, b);
+    mbar_expect_tx(cbar, (r + 2) * kWide);
+    for (int a = 0; a < NA; ++a) {
+      tma_load_4d(Cs + a * 8192, &tc, cbar, 64 * a, grp, row0, b);
+      for (int k = 0; k <= r; ++k)
+        tma_load_4d(Bt + k * kWide + a * 8192, &tb, cbar, 64 * a, grp, c0 + k * 64, b);
     }
     issue_head(0);
     mbar_wait(cb_done, 0);
@@ -679,12 +706,12 @@ __global__ void __launch_bounds__(288, 1) ssd_out_wgmma(
       const int k = wg + 2 * j;
       if (k <= r) {
         wgmma_ss_n64_first<0, 0>(cb[j], sw128_desc(Cs, 16, 1024),
-                                 sw128_desc(Bt + k * 16384, 16, 1024));
+                                 sw128_desc(Bt + k * kWide, 16, 1024));
 #pragma unroll
-        for (int kk = 1; kk < 8; ++kk) {
+        for (int kk = 1; kk < 4 * NA; ++kk) {
           const int off = (kk / 4) * 8192 + (kk % 4) * 32;
           wgmma_ss_n64<0, 0>(cb[j], sw128_desc(Cs + off, 16, 1024),
-                             sw128_desc(Bt + k * 16384 + off, 16, 1024), 1);
+                             sw128_desc(Bt + k * kWide + off, 16, 1024), 1);
         }
       }
     }
@@ -710,7 +737,7 @@ __global__ void __launch_bounds__(288, 1) ssd_out_wgmma(
   for (int i = wg; i < HT; i += 2) {
     const int s = i % 3, hh = h_first + i;
     unsigned char* st = ring + s * L::kStage;
-    const float* cw = reinterpret_cast<const float*>(st + NT * 8192 + 16384);
+    const float* cw = reinterpret_cast<const float*>(st + NT * 8192 + kWide);
     const float* dw = cw + Q;
     mbar_wait(full + i, 0);
 
@@ -721,7 +748,7 @@ __global__ void __launch_bounds__(288, 1) ssd_out_wgmma(
     wgmma_ss_n64_first<0, 0>(yo, sw128_desc(Cs, 16, 1024),
                              sw128_desc(st + NT * 8192, 16, 1024));
 #pragma unroll
-    for (int kk = 1; kk < 8; ++kk) {
+    for (int kk = 1; kk < 4 * NA; ++kk) {
       const int off = (kk / 4) * 8192 + (kk % 4) * 32;
       wgmma_ss_n64<0, 0>(yo, sw128_desc(Cs + off, 16, 1024),
                          sw128_desc(st + NT * 8192 + off, 16, 1024), 1);
@@ -789,46 +816,56 @@ __global__ void __launch_bounds__(288, 1) ssd_out_wgmma(
   }
 }
 
-// x [B, S, H, 64] and B, C [B, S, G, 128] as 4-D maps (columns, head or
-// group, sequence, batch), boxes of 64 columns x 64 rows; h_before
-// [B nc H 64, 128] as a 2-D map, boxes of 64 x 64.
-bool ssd_maps(const SsdTma& p, const void* x, const void* bm, const void* cm,
+// x [B, S, H, 64] and B, C [B, S, G, N] as 4-D maps (columns, head or
+// group, sequence, batch), boxes of 64 columns x 64 rows (a row of B or C is
+// N / 64 boxes); h_before [B nc H 64, N] as a 2-D map, boxes of 64 x 64.
+bool ssd_maps(const SsdTma& p, int N, const void* x, const void* bm, const void* cm,
               CUtensorMap* tx, CUtensorMap* tb, CUtensorMap* tc,
               CUtensorMap* thb) {
   const cuuint32_t box4[4] = {64, 1, 64, 1}, box2[2] = {64, 64};
-  const cuuint64_t B = p.batch, S = p.S, H = p.H, G = p.G;
+  const cuuint64_t B = p.batch, S = p.S, H = p.H, G = p.G, n = N;
   const cuuint64_t dx[4] = {64, H, S, B};
   const cuuint64_t sx[3] = {64 * 2, H * 64 * 2, S * H * 64 * 2};
-  const cuuint64_t dbc[4] = {128, G, S, B};
-  const cuuint64_t sbc[3] = {128 * 2, G * 128 * 2, S * G * 128 * 2};
-  const cuuint64_t dh[2] = {128, B * p.nc * H * 64};
-  const cuuint64_t sh[1] = {128 * 2};
+  const cuuint64_t dbc[4] = {n, G, S, B};
+  const cuuint64_t sbc[3] = {n * 2, G * n * 2, S * G * n * 2};
+  const cuuint64_t dh[2] = {n, B * p.nc * H * 64};
+  const cuuint64_t sh[1] = {n * 2};
   return make_map_bf16(tx, x, 4, dx, sx, box4) &&
          make_map_bf16(tb, bm, 4, dbc, sbc, box4) &&
          make_map_bf16(tc, cm, 4, dbc, sbc, box4) &&
          make_map_bf16(thb, p.hb, 2, dh, sh, box2);
 }
 
-template <int NT>
+template <int NT, int NA>
 cudaError_t launch_wgmma(const SsdTma& p, const void* x, const void* bm,
                          const void* cm, cudaStream_t stream) {
-  constexpr size_t smem_a = state_smem_bytes(), smem_b = OutLayout<NT>::kBytes;
+  constexpr size_t smem_a = state_smem_bytes<NA>(), smem_b = OutLayout<NT, NA>::kBytes;
   static const cudaError_t attr_a = cudaFuncSetAttribute(
-      ssd_state_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_state_wgmma<NT, NA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_a));
   static const cudaError_t attr_b = cudaFuncSetAttribute(
-      ssd_out_wgmma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_out_wgmma<NT, NA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_b));
   if (attr_a != cudaSuccess) return attr_a;
   if (attr_b != cudaSuccess) return attr_b;
   CUtensorMap tx, tb, tc, thb;
-  if (!ssd_maps(p, x, bm, cm, &tx, &tb, &tc, &thb)) return cudaErrorInvalidValue;
-  ssd_state_wgmma<NT><<<dim3(p.H, p.batch), 256, smem_a, stream>>>(tx, tb, p);
+  if (!ssd_maps(p, 64 * NA, x, bm, cm, &tx, &tb, &tc, &thb)) return cudaErrorInvalidValue;
+  ssd_state_wgmma<NT, NA><<<dim3(p.H, p.batch), 256, smem_a, stream>>>(tx, tb, p);
   const cudaError_t e = counted(cudaGetLastError(), kStateWgmma);
   if (e != cudaSuccess) return e;
   const unsigned grid = static_cast<unsigned>(NT) * p.batch * p.nc * (p.H / p.heads);
-  ssd_out_wgmma<NT><<<grid, 288, smem_b, stream>>>(tx, tb, tc, thb, p);
+  ssd_out_wgmma<NT, NA><<<grid, 288, smem_b, stream>>>(tx, tb, tc, thb, p);
   return counted(cudaGetLastError(), kOutWgmma);
+}
+
+template <int NA>
+cudaError_t launch_wgmma_q(const SsdTma& p, const void* x, const void* bm,
+                           const void* cm, cudaStream_t stream) {
+  switch (p.Q) {
+    case 64: return launch_wgmma<1, NA>(p, x, bm, cm, stream);
+    case 128: return launch_wgmma<2, NA>(p, x, bm, cm, stream);
+    default: return launch_wgmma<4, NA>(p, x, bm, cm, stream);
+  }
 }
 
 // The codes of kernel.VARIANT_CODES (a test holds the two to each other); the
@@ -846,9 +883,9 @@ enum SsdVariant {
 // up to 64, N a multiple of 4 up to 128, H a multiple of G.  `variant` is the
 // wrapper's choice, by (dtype, P, N, Q) alone: 0 = `ssd_fwd_kernel` on the
 // fp32 pipes; 1 = the two wgmma kernels, which take only bf16 at P = 64, N =
-// 128, Q >= 64 and need the scratch `cdt` [B, nc, H, 2, Q] fp32 and `hb` [B,
-// nc, H, P, N] bf16 and TMA-aligned tensors (16-byte bases; the wrapper
-// checks).  Returns the launches' cudaError_t as an int (cudaErrorInvalidValue
+// 64 or 128, Q >= 64 and need the scratch `cdt` [B, nc, H, 2, Q] fp32 and
+// `hb` [B, nc, H, P, N] bf16 and TMA-aligned tensors (16-byte bases; the
+// wrapper checks).  Returns the launches' cudaError_t as an int (cudaErrorInvalidValue
 // for a variant that cannot take these inputs).
 extern "C" int ssd_fwd(const void* x, const float* dt, const float* A,
                        const void* b, const void* c, const float* h0, void* y,
@@ -864,7 +901,7 @@ extern "C" int ssd_fwd(const void* x, const float* dt, const float* A,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kWgmma) {
-    if (dtype != 1 || P != 64 || N != 128 || Q < 64 || cdt == nullptr ||
+    if (dtype != 1 || P != 64 || (N != 64 && N != 128) || Q < 64 || cdt == nullptr ||
         hb == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     // heads a block of the output pass serves, sharing C.B^T: the largest of
@@ -876,11 +913,8 @@ extern "C" int ssd_fwd(const void* x, const float* dt, const float* A,
     t.hT = hT; t.cdt = cdt; t.hb = static_cast<__nv_bfloat16*>(hb);
     t.batch = batch; t.S = S; t.H = H; t.G = G; t.Q = Q;
     t.nc = (S + Q - 1) / Q; t.heads = heads;
-    switch (Q) {
-      case 64: return static_cast<int>(launch_wgmma<1>(t, x, b, c, s));
-      case 128: return static_cast<int>(launch_wgmma<2>(t, x, b, c, s));
-      default: return static_cast<int>(launch_wgmma<4>(t, x, b, c, s));
-    }
+    return static_cast<int>(N == 64 ? launch_wgmma_q<1>(t, x, b, c, s)
+                                    : launch_wgmma_q<2>(t, x, b, c, s));
   }
   SsdParams p;
   p.x = x; p.dt = dt; p.A = A; p.b = b; p.c = c; p.h0 = h0; p.y = y; p.hT = hT;

@@ -4,13 +4,13 @@ The sources ``csrc/ssd_fwd.cu`` and ``csrc/ssd_bwd.cu`` are compiled at first
 use by ``repro_torch.kernels._build`` (``nvcc`` into ``build/``, loaded with
 ``ctypes``), one library each.  Which kernels run is fixed by (dtype, P, N,
 chunk) alone (``variant`` and ``variant_bwd``, which the wrappers pass to the
-C functions): bf16 at the serving and training shape (P 64, N 128, chunk 64
-and up) runs on wgmma + TMA, the forward in two kernels (the state pass,
-then the outputs), the backward in five (the two state recurrences, the
-column and the row owners of the chunk pairs, then two short passes);
+C functions): bf16 at the serving and training shapes (P 64, N 64 or 128,
+chunk 64 and up) runs on wgmma + TMA, the forward in two kernels (the state
+pass, then the outputs), the backward in five (the two state recurrences,
+the column and the row owners of the chunk pairs, then two short passes);
 everything else runs on the fp32 pipes, the forward in one kernel, the
-backward in five.  The backward's fp32-pipe variant also runs where a caller
-names it (``variant=``), to be timed against the rule's.
+backward in five.  The fp32-pipe variants also run where a caller names them
+(``variant=``), to be timed against the rule's.
 """
 from __future__ import annotations
 
@@ -101,15 +101,17 @@ def takes(head_dim: int, state: int, chunk: int) -> bool:
 
 def _tensor_cores(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> bool:
     """The domain of the wgmma + TMA variants, forward and backward: bf16 at
-    P 64, N 128, chunk 64, 128 or 256."""
-    return (dtype == torch.bfloat16 and head_dim == 64 and state == 128
+    P 64, N 64 or 128 (one or two 64-column atoms of the state), chunk 64,
+    128 or 256."""
+    return (dtype == torch.bfloat16 and head_dim == 64 and state in (64, 128)
             and chunk >= 64)
 
 
 def variant(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
-    """The kernels that run for this dtype and (P, N, chunk): ``ssd_wgmma`` (bf16 at P 64, N 128, chunk 64, 128 or
-    256: two kernels, ``VARIANT_KERNELS``) or ``ssd_fwd_kernel`` (everything
-    else, and every float32 input: the fp32 pipes)."""
+    """The kernels that run for this dtype and (P, N, chunk): ``ssd_wgmma``
+    (bf16 at P 64, N 64 or 128, chunk 64, 128 or 256: two kernels,
+    ``VARIANT_KERNELS``) or ``ssd_fwd_kernel`` (everything else, and every
+    float32 input: the fp32 pipes)."""
     if dtype not in DTYPE_CODES or not takes(head_dim, state, chunk):
         raise ValueError(f"no kernel for {dtype} at (P={head_dim}, N={state}, "
                          f"chunk={chunk})")
@@ -120,9 +122,9 @@ def variant(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
 
 def variant_bwd(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> str:
     """The backward that runs for this dtype and (P, N, chunk), by the
-    forward's rule: ``ssd_bwd_wgmma`` (bf16 at P 64, N 128, chunk 64, 128 or
-    256: wgmma + TMA) or ``ssd_bwd_simt`` (everything else, and every float32
-    input: the fp32 pipes); five CUDA kernels each
+    forward's rule: ``ssd_bwd_wgmma`` (bf16 at P 64, N 64 or 128, chunk 64,
+    128 or 256: wgmma + TMA) or ``ssd_bwd_simt`` (everything else, and every
+    float32 input: the fp32 pipes); five CUDA kernels each
     (``VARIANT_KERNELS_BWD``)."""
     if dtype not in DTYPE_CODES or not takes(head_dim, state, chunk):
         raise ValueError(f"no kernel for {dtype} at (P={head_dim}, N={state}, "
@@ -132,16 +134,22 @@ def variant_bwd(dtype: torch.dtype, head_dim: int, state: int, chunk: int) -> st
     return "ssd_bwd_simt"
 
 
-def _chosen_bwd(name: Optional[str], dtype: torch.dtype, head_dim: int,
-                state: int, chunk: int) -> str:
-    """``name``, or variant_bwd's choice where it is None; raises where the
-    named variant has no kernel for these inputs (``ssd_bwd_simt`` takes
-    every input variant_bwd takes, ``ssd_bwd_wgmma`` only its own domain)."""
-    rule = variant_bwd(dtype, head_dim, state, chunk)
+# the fp32-pipe variants, forward and backward: they take every input the
+# rules take, in both types
+FP32_PIPES = ("ssd_fwd_kernel", "ssd_bwd_simt")
+
+
+def _chosen(name: Optional[str], backward: bool, dtype: torch.dtype,
+            head_dim: int, state: int, chunk: int) -> str:
+    """``name``, or the rule's choice (``variant`` or, for the backward,
+    ``variant_bwd``) where it is None; raises where the named variant has no
+    kernel for these inputs (the fp32-pipe variant takes every input its rule
+    takes, the wgmma one only its own domain)."""
+    rule = (variant_bwd if backward else variant)(dtype, head_dim, state, chunk)
     if name is None:
         return rule
-    if name not in VARIANT_CODES_BWD or (
-            name == "ssd_bwd_wgmma" and rule != name):
+    codes = VARIANT_CODES_BWD if backward else VARIANT_CODES
+    if name not in codes or (name not in FP32_PIPES and name != rule):
         raise ValueError(f"variant {name!r} has no kernel for {dtype} at "
                          f"(P={head_dim}, N={state}, chunk={chunk})")
     return name
@@ -197,14 +205,17 @@ def ssd_scan_fwd(
     *,
     chunk: int,
     init_state: Optional[torch.Tensor] = None,   # [B, H, P, N] fp32
+    variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on CUDA tensors: (y [B,S,H,P] in x's type, final
-    state [B,H,P,N] fp32).  Raises on anything it does not take."""
+    state [B,H,P,N] fp32).  ``variant`` names the kernels to run instead of
+    the rule's choice (``ssd_fwd_kernel`` where the rule picks ``ssd_wgmma``,
+    to time the two).  Raises on anything it does not take."""
     Bsz, S, H, P, G, N = _check(x, dt, A, B_, C, init_state, chunk)
-    kind = variant(x.dtype, P, N, chunk)
+    kind = _chosen(variant, False, x.dtype, P, N, chunk)
     if kind == "ssd_wgmma" and any(t.data_ptr() % 16 for t in (x, B_, C)):
-        # TMA takes only 16-byte aligned bases (the rows of x, B and C are
-        # 128 and 256 bytes)
+        # TMA takes only 16-byte aligned bases (the rows of x are 128 bytes,
+        # of B and C 128 or 256)
         raise ValueError("bfloat16 x, B and C must start on a 16-byte boundary "
                          "(TMA)")
     if not x.is_cuda:
@@ -267,10 +278,10 @@ def ssd_scan_bwd(
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in extra):
         raise ValueError("dy and d_final_state must be contiguous")
-    kind = _chosen_bwd(variant, x.dtype, P, N, chunk)
+    kind = _chosen(variant, True, x.dtype, P, N, chunk)
     if kind == "ssd_bwd_wgmma" and any(t.data_ptr() % 16 for t in (x, B_, C, dy)):
-        # TMA takes only 16-byte aligned bases (the rows of x, dy, B and C are
-        # 128 and 256 bytes)
+        # TMA takes only 16-byte aligned bases (the rows of x and dy are 128
+        # bytes, of B and C 128 or 256)
         raise ValueError("bfloat16 x, dy, B and C must start on a 16-byte "
                          "boundary (TMA)")
     if not x.is_cuda:

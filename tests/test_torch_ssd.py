@@ -91,11 +91,13 @@ def test_ssd_matches_jax_kernel_and_oracle(dtype, shape):
 
 @pytest.mark.parametrize("with_init", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [SHAPES[1], (2, 300, 2, 64, 1, 128, 256)])
+@pytest.mark.parametrize("shape", [SHAPES[1], (2, 300, 2, 64, 1, 128, 256),
+                                   (1, 300, 4, 64, 1, 64, 256)])
 def test_ssd_chunked_ref_matches_the_model_chunked_path(shape, dtype, with_init):
     """y and the final state, with and without an initial state, against the
-    JAX model's ssd_chunked; the second shape is the serving path's class
-    (P 64, N 128, chunk 256) with a ragged last chunk."""
+    JAX model's ssd_chunked; the second shape is mamba2-1.3b's serving class
+    (P 64, N 128, chunk 256) with a ragged last chunk, the third
+    zamba2-1.2b's (N 64), four heads in a group."""
     B, S, H, P, G, N, chunk = shape
     arrs = _inputs(B, S, H, P, G, N, dtype, seed=3)
     h0 = (np.random.default_rng(4).standard_normal((B, H, P, N)).astype(np.float32)

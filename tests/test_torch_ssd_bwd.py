@@ -45,6 +45,9 @@ SHAPES = [
     (2, 100, 4, 16, 2, 8, 32),
     (1, 256, 8, 32, 8, 16, 64),
 ]
+# zamba2-1.2b's scan geometry (P 64, N 64, chunk 256), ragged, four heads in
+# a group: what the card holds the N 64 wgmma backward to
+ZAMBA2_SHAPE = (1, 300, 4, 64, 1, 64, 256)
 
 
 def _scan_inputs(B, S, H, P, G, N, seed):
@@ -77,7 +80,7 @@ def _jax_grads(arrs, h0, dy, dT, chunk):
 
 @pytest.mark.parametrize("final_grad", [False, True])
 @pytest.mark.parametrize("with_init", [False, True])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [ZAMBA2_SHAPE])
 def test_bwd_ref_matches_jax_grad_and_torch_autograd(shape, with_init, final_grad):
     """Every input's gradient, with and without an initial state and a
     final-state gradient, against jax.grad through the JAX model's chunked
@@ -276,18 +279,18 @@ def test_bwd_variant_codes_and_kernels_are_the_c_functions():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_variant_takes_what_the_forward_takes(dtype):
     """The backward's rule is the forward's: where the forward runs on
-    wgmma (bf16 at P 64, N 128, chunk 64 and up) so does the backward, and
-    every other input the forward takes runs on the fp32 pipes."""
+    wgmma (bf16 at P 64, N 64 or 128, chunk 64 and up) so does the backward,
+    and every other input the forward takes runs on the fp32 pipes."""
     by_forward = {"ssd_wgmma": "ssd_bwd_wgmma", "ssd_fwd_kernel": "ssd_bwd_simt"}
     for arch in PORTED_ARCHS:
         cfg = get_config(arch)
-        if cfg.family != "ssm":
+        if cfg.family not in ("ssm", "hybrid"):
             continue
         shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
         assert kssd.variant_bwd(dtype, *shape) == (
             "ssd_bwd_wgmma" if dtype == torch.bfloat16 else "ssd_bwd_simt")
     for shape in ((16, 8, 32), (64, 128, 64), (4, 4, 256), (64, 128, 32),
-                  (64, 64, 256), (32, 128, 128)):
+                  (64, 64, 256), (32, 128, 128), (64, 64, 64), (64, 64, 32)):
         assert kssd.variant_bwd(dtype, *shape) == by_forward[kssd.variant(dtype, *shape)]
         assert kssd.variant_bwd(dtype, *shape) in kssd.VARIANT_CODES_BWD
     for shape in ((64, 128, 48), (66, 128, 256), (64, 132, 256)):
@@ -300,12 +303,14 @@ def test_bwd_variant_takes_what_the_forward_takes(dtype):
 @pytest.mark.parametrize("P,N,chunk,expected", [
     (64, 128, 64, "ssd_bwd_wgmma"), (64, 128, 128, "ssd_bwd_wgmma"),
     (64, 128, 256, "ssd_bwd_wgmma"), (64, 128, 32, "ssd_bwd_simt"),
-    (32, 128, 256, "ssd_bwd_simt"), (64, 64, 256, "ssd_bwd_simt"),
-    (64, 124, 256, "ssd_bwd_simt"), (16, 8, 32, "ssd_bwd_simt")])
+    (32, 128, 256, "ssd_bwd_simt"), (64, 64, 256, "ssd_bwd_wgmma"),
+    (64, 124, 256, "ssd_bwd_simt"), (16, 8, 32, "ssd_bwd_simt"),
+    (64, 64, 64, "ssd_bwd_wgmma"), (64, 64, 128, "ssd_bwd_wgmma"),
+    (64, 64, 32, "ssd_bwd_simt"), (64, 96, 256, "ssd_bwd_simt")])
 def test_bwd_variant_by_shape(P, N, chunk, expected):
-    """ssd_bwd_wgmma exactly on bf16 at P 64, N 128, chunk 64 and up (zamba2's
-    N 64 among the rest); float32 always on the fp32 pipes; five CUDA
-    kernels each, the last two shared."""
+    """ssd_bwd_wgmma exactly on bf16 at P 64, N 64 or 128 (zamba2-1.2b's and
+    mamba2-1.3b's), chunk 64 and up; float32 always on the fp32 pipes; five
+    CUDA kernels each, the last two shared."""
     assert kssd.variant_bwd(torch.bfloat16, P, N, chunk) == expected
     assert kssd.variant_bwd(torch.float32, P, N, chunk) == "ssd_bwd_simt"
     assert kssd.VARIANT_KERNELS_BWD["ssd_bwd_wgmma"] == (
@@ -326,7 +331,9 @@ def _bwd_args(dtype, P=64, N=128, chunk=64):
     ("ssd_bwd_simt", torch.bfloat16, (64, 128, 256)),
     ("ssd_bwd_simt", torch.bfloat16, (64, 128, 64)),
     ("ssd_bwd_wgmma", torch.bfloat16, (64, 128, 128)),
-    ("ssd_bwd_simt", torch.float32, (16, 8, 32))])
+    ("ssd_bwd_simt", torch.float32, (16, 8, 32)),
+    ("ssd_bwd_wgmma", torch.bfloat16, (64, 64, 256)),
+    ("ssd_bwd_simt", torch.bfloat16, (64, 64, 256))])
 def test_bwd_named_variant_that_takes_reaches_the_device_check(name, dtype, shape):
     """``variant=`` overrides variant_bwd with a kernel that takes the input:
     the fp32-pipe variant takes what the rule gives wgmma (to time the two)."""
@@ -338,8 +345,9 @@ def test_bwd_named_variant_that_takes_reaches_the_device_check(name, dtype, shap
 @pytest.mark.parametrize("name,dtype,shape", [
     ("ssd_bwd_wgmma", torch.float32, (64, 128, 256)),
     ("ssd_bwd_wgmma", torch.bfloat16, (64, 128, 32)),
-    ("ssd_bwd_wgmma", torch.bfloat16, (64, 64, 256)),
-    ("ssd_bwd_none", torch.bfloat16, (64, 128, 256))])
+    ("ssd_bwd_wgmma", torch.bfloat16, (64, 96, 256)),
+    ("ssd_bwd_none", torch.bfloat16, (64, 128, 256)),
+    ("ssd_bwd_wgmma", torch.bfloat16, (64, 64, 32))])
 def test_bwd_named_variant_that_does_not_take_raises(name, dtype, shape):
     args, kw = _bwd_args(dtype, *shape)
     with pytest.raises(ValueError, match="has no kernel"):

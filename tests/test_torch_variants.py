@@ -17,7 +17,8 @@ from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.ssd_scan import kernel as ssd
 
 ATTENTION_ARCHS = [a for a in PORTED_ARCHS if get_config(a).family != "ssm"]
-SSM_ARCHS = [a for a in PORTED_ARCHS if get_config(a).family == "ssm"]
+# every ported config that runs the scan: Mamba-2 (ssm) and Zamba2 (hybrid)
+SSM_ARCHS = [a for a in PORTED_ARCHS if get_config(a).family in ("ssm", "hybrid")]
 
 
 @pytest.mark.parametrize("arch", ATTENTION_ARCHS)
@@ -65,8 +66,9 @@ def test_attention_variant_refuses_what_no_kernel_takes():
 
 @pytest.mark.parametrize("arch", SSM_ARCHS)
 def test_ssd_variant_of_every_ported_config(arch):
-    """mamba2-1.3b's (P 64, N 128, chunk 256) in bf16 runs the two wgmma
-    kernels forward and the wgmma backward; in float32 the fp32-pipe ones."""
+    """mamba2-1.3b's (P 64, N 128, chunk 256) and zamba2-1.2b's (P 64, N 64,
+    chunk 256) in bf16 run the two wgmma kernels forward and the wgmma
+    backward; in float32 the fp32-pipe ones."""
     cfg = get_config(arch)
     shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
     assert ssd.variant(torch.bfloat16, *shape) == "ssd_wgmma"
@@ -80,11 +82,19 @@ def test_ssd_variant_of_every_ported_config(arch):
 @pytest.mark.parametrize("P,N,chunk,expected", [
     (64, 128, 64, "ssd_wgmma"), (64, 128, 128, "ssd_wgmma"),
     (64, 128, 256, "ssd_wgmma"), (64, 128, 32, "ssd_fwd_kernel"),
-    (32, 128, 256, "ssd_fwd_kernel"), (64, 64, 256, "ssd_fwd_kernel"),
-    (16, 8, 32, "ssd_fwd_kernel")])
+    (32, 128, 256, "ssd_fwd_kernel"), (64, 64, 256, "ssd_wgmma"),
+    (16, 8, 32, "ssd_fwd_kernel"), (64, 64, 64, "ssd_wgmma"),
+    (64, 64, 128, "ssd_wgmma"), (64, 64, 32, "ssd_fwd_kernel"),
+    (64, 96, 256, "ssd_fwd_kernel"), (32, 64, 256, "ssd_fwd_kernel")])
 def test_ssd_variant_by_shape(P, N, chunk, expected):
+    """bf16 at P 64, N 64 or 128 (one or two 64-column atoms of the state),
+    chunk 64 and up runs on wgmma, forward and backward; the rest, and every
+    float32 input, on the fp32 pipes."""
     assert ssd.variant(torch.bfloat16, P, N, chunk) == expected
     assert ssd.variant(torch.float32, P, N, chunk) == "ssd_fwd_kernel"
+    backward = {"ssd_wgmma": "ssd_bwd_wgmma", "ssd_fwd_kernel": "ssd_bwd_simt"}
+    assert ssd.variant_bwd(torch.bfloat16, P, N, chunk) == backward[expected]
+    assert ssd.variant_bwd(torch.float32, P, N, chunk) == "ssd_bwd_simt"
 
 
 def test_ssd_variant_refuses_what_no_kernel_takes():
@@ -122,7 +132,8 @@ def test_launch_counters_name_every_variants_kernels(module):
 @pytest.mark.parametrize("module,args", [
     (fa, (torch.bfloat16, 64)), (fa, (torch.bfloat16, 80)),
     (fa, (torch.float32, 128)), (ssd, (torch.bfloat16, 64, 128, 256)),
-    (ssd, (torch.bfloat16, 64, 128, 32)), (ssd, (torch.float32, 64, 128, 256))])
+    (ssd, (torch.bfloat16, 64, 128, 32)), (ssd, (torch.float32, 64, 128, 256)),
+    (ssd, (torch.bfloat16, 64, 64, 256))])
 def test_every_variant_named_has_a_code(module, args):
     name = module.variant(*args)
     assert name in module.VARIANT_CODES and name in module.VARIANT_KERNELS
@@ -179,44 +190,93 @@ def test_explicit_forward_variant_that_takes_reaches_the_device_check(name, dtyp
 
 @pytest.mark.parametrize("which", ["x", "B", "C"])
 def test_ssd_wrapper_refuses_what_tma_cannot_take(which):
-    """The wgmma variant loads x, B and C by TMA: a base off a 16-byte
-    boundary raises, on CPU tensors, before the device check."""
-    Bsz, S, H, P, G, N = 1, 64, 2, 64, 1, 128
+    """The wgmma variant loads x, B and C by TMA: at N 64 and 128 (rows of B
+    and C of 128 and 256 bytes) a base off a 16-byte boundary raises, on CPU
+    tensors, before the device check; named instead, the fp32-pipe variant
+    reads element by element and takes it."""
+    Bsz, S, H, P, G = 1, 64, 2, 64, 1
     bf = torch.bfloat16
-    t = {"x": torch.zeros((Bsz, S, H, P), dtype=bf),
-         "B": torch.zeros((Bsz, S, G, N), dtype=bf),
-         "C": torch.zeros((Bsz, S, G, N), dtype=bf)}
-    dt, A = torch.zeros((Bsz, S, H)), torch.zeros((H,))
-    with pytest.raises(ValueError, match="CUDA tensors"):   # aligned: next check
-        ssd.ssd_scan_fwd(t["x"], dt, A, t["B"], t["C"], chunk=64)
-    t[which] = _offset(tuple(t[which].shape), bf)
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        ssd.ssd_scan_fwd(t["x"], dt, A, t["B"], t["C"], chunk=64)
+    for N in (64, 128):
+        t = {"x": torch.zeros((Bsz, S, H, P), dtype=bf),
+             "B": torch.zeros((Bsz, S, G, N), dtype=bf),
+             "C": torch.zeros((Bsz, S, G, N), dtype=bf)}
+        dt, A = torch.zeros((Bsz, S, H)), torch.zeros((H,))
+        assert ssd.variant(bf, P, N, 64) == "ssd_wgmma"
+        with pytest.raises(ValueError, match="CUDA tensors"):   # aligned: next check
+            ssd.ssd_scan_fwd(t["x"], dt, A, t["B"], t["C"], chunk=64)
+        t[which] = _offset(tuple(t[which].shape), bf)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ssd.ssd_scan_fwd(t["x"], dt, A, t["B"], t["C"], chunk=64)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ssd.ssd_scan_fwd(t["x"], dt, A, t["B"], t["C"], chunk=64,
+                             variant="ssd_fwd_kernel")
 
 
 @pytest.mark.parametrize("which", ["x", "dy", "B", "C"])
 def test_ssd_backward_refuses_what_tma_cannot_take(which):
-    """The backward's wgmma variant loads x, dy, B and C by TMA: a base off a
-    16-byte boundary raises, on CPU tensors, before the device check; named
-    instead, the fp32-pipe variant reads element by element and takes it."""
-    Bsz, S, H, P, G, N = 1, 64, 2, 64, 1, 128
+    """The backward's wgmma variant loads x, dy, B and C by TMA: at N 64 and
+    128 a base off a 16-byte boundary raises, on CPU tensors, before the
+    device check; named instead, the fp32-pipe variant reads element by
+    element and takes it."""
+    Bsz, S, H, P, G = 1, 64, 2, 64, 1
     bf = torch.bfloat16
-    t = {"x": torch.zeros((Bsz, S, H, P), dtype=bf),
-         "dy": torch.zeros((Bsz, S, H, P), dtype=bf),
-         "B": torch.zeros((Bsz, S, G, N), dtype=bf),
-         "C": torch.zeros((Bsz, S, G, N), dtype=bf)}
-    dt, A = torch.zeros((Bsz, S, H)), torch.zeros((H,))
+    for N in (64, 128):
+        t = {"x": torch.zeros((Bsz, S, H, P), dtype=bf),
+             "dy": torch.zeros((Bsz, S, H, P), dtype=bf),
+             "B": torch.zeros((Bsz, S, G, N), dtype=bf),
+             "C": torch.zeros((Bsz, S, G, N), dtype=bf)}
+        dt, A = torch.zeros((Bsz, S, H)), torch.zeros((H,))
 
-    def call(**kw):
-        return ssd.ssd_scan_bwd(t["x"], dt, A, t["B"], t["C"], t["dy"], chunk=64, **kw)
-    assert ssd.variant_bwd(bf, P, N, 64) == "ssd_bwd_wgmma"
-    with pytest.raises(ValueError, match="CUDA tensors"):   # aligned: next check
-        call()
-    t[which] = _offset(tuple(t[which].shape), bf)
-    with pytest.raises(ValueError, match="16-byte boundary"):
-        call()
+        def call(**kw):
+            return ssd.ssd_scan_bwd(t["x"], dt, A, t["B"], t["C"], t["dy"], chunk=64,
+                                    **kw)
+        assert ssd.variant_bwd(bf, P, N, 64) == "ssd_bwd_wgmma"
+        with pytest.raises(ValueError, match="CUDA tensors"):   # aligned: next check
+            call()
+        t[which] = _offset(tuple(t[which].shape), bf)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            call()
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(variant="ssd_bwd_simt")
+
+
+def _ssd_args(dtype, P, N, chunk):
+    """CPU tensors the forward's wrapper checks; the device check comes last."""
+    B, S, H, G = 1, 64, 2, 1
+    return (torch.zeros((B, S, H, P), dtype=dtype), torch.zeros((B, S, H)),
+            torch.zeros((H,)), torch.zeros((B, S, G, N), dtype=dtype),
+            torch.zeros((B, S, G, N), dtype=dtype)), {"chunk": chunk}
+
+
+@pytest.mark.parametrize("name,dtype,shape", [
+    ("ssd_wgmma", torch.float32, (64, 128, 256)),
+    ("ssd_wgmma", torch.float32, (64, 64, 256)),
+    ("ssd_wgmma", torch.bfloat16, (64, 64, 32)),
+    ("ssd_wgmma", torch.bfloat16, (64, 96, 256)),
+    ("ssd_wgmma", torch.bfloat16, (32, 64, 256)),
+    ("ssd_none", torch.bfloat16, (64, 64, 256))])
+def test_ssd_explicit_forward_variant_that_does_not_take_raises(name, dtype, shape):
+    """``variant=`` overrides the scan forward's rule only with a kernel that
+    takes the dtype and (P, N, chunk): anything else raises before the device
+    check."""
+    args, kw = _ssd_args(dtype, *shape)
+    with pytest.raises(ValueError, match="has no kernel"):
+        ssd.ssd_scan_fwd(*args, variant=name, **kw)
+
+
+@pytest.mark.parametrize("name,dtype,shape", [
+    ("ssd_fwd_kernel", torch.bfloat16, (64, 64, 256)),
+    ("ssd_fwd_kernel", torch.bfloat16, (64, 128, 64)),
+    ("ssd_wgmma", torch.bfloat16, (64, 64, 64)),
+    ("ssd_wgmma", torch.bfloat16, (64, 128, 128)),
+    ("ssd_fwd_kernel", torch.float32, (16, 8, 32))])
+def test_ssd_explicit_forward_variant_that_takes_reaches_the_device_check(
+        name, dtype, shape):
+    """The fp32-pipe variant takes what the rule gives wgmma (to time the
+    two); the wgmma variant takes its own domain."""
+    args, kw = _ssd_args(dtype, *shape)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        call(variant="ssd_bwd_simt")
+        ssd.ssd_scan_fwd(*args, variant=name, **kw)
 
 
 def test_fp32_pipes_need_no_tma_alignment():

@@ -158,16 +158,19 @@ def test_config_equals_jax_config_field_by_field(preset):
 def test_kernels_take_the_full_width_shapes():
     """On the card prefill and training go through both kernels, which raise
     on a shape they were not built for: zamba2's full config must be one
-    they take.  Its N 64 is outside the wgmma variants' domain, so bf16 runs
-    the fp32-pipe kernels, forward and backward."""
+    they take.  Its N 64 (one 64-column atom of the state) is in the wgmma
+    variants' domain, so bf16 runs on wgmma + TMA, forward and backward;
+    float32 on the fp32 pipes."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     from repro_torch.kernels.ssd_scan import kernel
     cfg = get_config(ARCH)
     assert cfg.resolved_head_dim in HEAD_DIMS
     assert kernel.takes(cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
     shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
-    assert kernel.variant(torch.bfloat16, *shape) == "ssd_fwd_kernel"
-    assert kernel.variant_bwd(torch.bfloat16, *shape) == "ssd_bwd_simt"
+    assert kernel.variant(torch.bfloat16, *shape) == "ssd_wgmma"
+    assert kernel.variant_bwd(torch.bfloat16, *shape) == "ssd_bwd_wgmma"
+    assert kernel.variant(torch.float32, *shape) == "ssd_fwd_kernel"
+    assert kernel.variant_bwd(torch.float32, *shape) == "ssd_bwd_simt"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
