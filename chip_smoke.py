@@ -11,14 +11,18 @@ each call launched, as the C functions count them), times the attention
 forward and backward in turns against their earlier variants and PyTorch's
 fused backends and the SSD scan's forward and backward against their
 fp32-pipe variants, and each kernel at the full-width shapes of Qwen2-VL,
-Whisper and Zamba2; serves
-tinyllama-1.1b, stablelm-3b, mamba2-1.3b, qwen2-vl-2b, zamba2-1.2b and
-whisper-large-v3 at full width (random weights from a seed: batch 8 x prompt
-1024, 64 generated tokens; Whisper 1500 frames of random embeddings and a
-decoder prompt of 375) through the port's `launch.serve.generate`; trains all six at full width and depth (batch 8 x 1024; Whisper 8
-x 375 over 1500 frames; a few AdamW steps through the port's train step),
-holds the kernel paths against the dense paths (fp32, and bf16 for the
-gradients), and checks the results.
+Whisper, Zamba2 and nemotron-4-15b; runs the paper's five MapReduce workloads
+on 2^30 tokens on the card against a numpy oracle; serves
+tinyllama-1.1b, stablelm-3b, mamba2-1.3b, qwen2-vl-2b, zamba2-1.2b,
+whisper-large-v3, llama3.2-3b and nemotron-4-15b at full width (random
+weights from a seed: batch 8 x prompt 1024, 64 generated tokens; Whisper 1500
+frames of random embeddings and a decoder prompt of 375) through the port's
+`launch.serve.generate`; trains all but nemotron-4-15b at full width and
+depth (batch 8 x 1024; Whisper 8 x 375 over 1500 frames; a few AdamW steps
+through the port's train step), holds the kernel paths against the dense
+paths (fp32, and bf16 for the gradients), checks the results, and saves and
+restores tinyllama-1.1b's full training state (the step after it bit for
+bit).
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device it prints no result and exits with code 1.
@@ -28,12 +32,15 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -139,9 +146,11 @@ SSD_SHAPES = [
 SSD_INIT_STATE = {1, 5, 7, 8, 9, 10, 11}   # cases also run from a random
 # initial state (and, for the backward, with a gradient of the final state)
 
-# K1 at llama3.2-3b's full width (head dim 128, 24 / 8 heads), timed beside the
-# main paths' shapes
+# K1 at llama3.2-3b's full width (head dim 128, 24 / 8 heads: a group of 3)
+# and nemotron-4-15b's (48 / 8: a group of 6), timed beside the main paths'
+# shapes
 K1_D128_SHAPE = (8, 24, 8, 1024, 1024, 128)
+NEMOTRON_ATTN_SHAPE = (8, 48, 8, 1024, 1024, 128)
 # the later families' full-width shapes, timed too: Qwen2-VL's attention (a
 # group of 6 at head dim 128), Whisper's cross-attention (375 decoder rows
 # over 1500 frames, non-causal), its encoder's self-attention (1500 frames,
@@ -156,7 +165,7 @@ ZAMBA2_SSD_SHAPE = (8, 1024, 64, 64, 1, 64)
 # The main paths: each arch served at batch 8 x prompt 1024, 64 generated
 # tokens; Whisper's decoder over 1500 frames with a prompt of 1500 // 4
 SERVE_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b", "qwen2-vl-2b",
-               "zamba2-1.2b", "whisper-large-v3")
+               "zamba2-1.2b", "whisper-large-v3", "llama3.2-3b", "nemotron-4-15b")
 BATCH, PROMPT_LEN, GEN = 8, 1024, 64
 WHISPER_FRAMES = 1500
 SEED = 0
@@ -166,16 +175,16 @@ SEED = 0
 # bf16 y against the recurrent step's), relative to max|logit|
 DECODE_TOL = 5e-2
 PARITY_TOL = 2e-4     # fp32, kernel path against dense path, 2 layers
-# full-width configs for that: the main paths', and the one whose head dim
-# (80), partial rotary and layer norm tinyllama does not have
-PARITY_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b", "qwen2-vl-2b",
-                "zamba2-1.2b", "whisper-large-v3")
+# full-width configs for that: every served arch (2 layers)
+PARITY_ARCHS = SERVE_ARCHS
 # Qwen2-VL's parity also takes one loss with vision embeddings prepended
 VISION_TOKENS = 256
 
-# The training paths: tinyllama-1.1b, stablelm-3b and mamba2-1.3b at full
-# width and depth,
-# bf16, remat "full" (the configs'), batch 8 x sequence 1024, one warm-up step
+# The training paths: every served arch but nemotron-4-15b (bf16 weights, fp32
+# grads and two fp32 moments of 15.6 B parameters do not fit one card) at
+# full width and depth, bf16, the configs' remat ("full"; llama3.2-3b's
+# "comm" checkpoints attention and FFN halves, which recomputes attention
+# as often), batch 8 x sequence 1024, one warm-up step
 # and then TRAIN_STEPS timed AdamW steps, all on the first batch of the synthetic
 # pipeline, so the loss must fall from timed step to timed step, and end
 # below the warm-up step's.  A first Adam step from random weights moves
@@ -183,7 +192,7 @@ VISION_TOKENS = 256
 # both attention paths and with fp32 weights too; larger lrs without warm-up
 # swing wider (scripts/train_lr_sweep.py), so these steps take a small one
 TRAIN_ARCHS = ("tinyllama-1.1b", "stablelm-3b", "mamba2-1.3b", "qwen2-vl-2b",
-               "zamba2-1.2b", "whisper-large-v3")
+               "zamba2-1.2b", "whisper-large-v3", "llama3.2-3b")
 TRAIN_STEPS = 3
 TRAIN_OPT = dict(lr=1e-5, warmup_steps=0)
 # qwen2-vl-2b's and zamba2-1.2b's losses swing at lr 1e-5 (12.12, 9.75,
@@ -196,6 +205,15 @@ TRAIN_LR = {"qwen2-vl-2b": 3e-6, "zamba2-1.2b": 3e-6}
 # there moves an element by up to 2 lr.  The on-card parity of the updated
 # params counts such elements and holds the rest to PARITY_TOL.
 NEAR_ZERO_GRAD = 1e-6
+
+# The MapReduce data plane: each of the paper's five workloads on one job of
+# 256 blocks of 4 Mi tokens (2^30 int32 tokens, 4 GiB on the card, 16 MiB a
+# block), 8 reducers; the oracle's vocabulary and grep's needle
+MR_JOB = dict(n_blocks=256, block_tokens=1 << 22, n_reducers=8, seed=SEED)
+MR_VOCAB, MR_NEEDLE = 4096, 7
+# The checkpoint phase's model: its full training state (bf16 params, fp32
+# moments) saved, restored, and stepped on
+CKPT_ARCH = "tinyllama-1.1b"
 
 
 def emit(phase: str, **fields) -> None:
@@ -261,9 +279,10 @@ def variant_kernels(cfg, op: str) -> tuple:
 def expected_launches(cfg, train_steps: int = 0) -> tuple:
     """The launches of each op (`flash_attention_fwd` ...) and of each CUDA
     kernel that one prefill of `cfg` (train_steps 0) or `train_steps` train
-    steps under remat "full" make: in a step each forward call inside a
-    checkpointed layer runs twice (the forward, and the recompute), each
-    backward once.  The CUDA kernels are those of the rule's variants."""
+    steps under remat "full" or "comm" make: in a step each forward call
+    inside a checkpointed layer (or attention half) runs twice (the forward,
+    and the recompute), each backward once.  The CUDA kernels are those of
+    the rule's variants."""
     ops, kernels = {}, {}
     calls = op_calls(cfg)
     for op, (inner, outer) in (("flash_attention", calls["attention"]),
@@ -559,7 +578,8 @@ def phase_kernels() -> dict:
     # full width, at stablelm-3b's heads
     main = measure((BATCH, 32, 4, PROMPT_LEN, PROMPT_LEN, 64))
     d80 = measure(STABLELM_ATTN_SHAPE, must_beat_earlier=True)
-    d128 = measure(K1_D128_SHAPE)
+    d128 = {"llama3.2-3b": measure(K1_D128_SHAPE),
+            "nemotron-4-15b": measure(NEMOTRON_ATTN_SHAPE)}
     d32 = measure(D32_SHAPE)
     # Qwen2-VL's (a group of 6) and Whisper's cross-attention (non-causal)
     later = {"qwen2-vl-2b": measure(QWEN2_VL_ATTN_SHAPE),
@@ -571,7 +591,7 @@ def phase_kernels() -> dict:
          max_rel_err_bf16=max(c["rel_err"] for c in cases if c["dtype"] == "bfloat16"),
          main_path_shape=main, head_dim_80=d80, head_dim_128=d128,
          head_dim_32_no_config_at_full_width=d32, later_families=later)
-    return main, d80, later
+    return main, d80, later, d128
 
 
 def attention_bwd_bound_ms(q, k, v, causal, window):
@@ -797,7 +817,7 @@ def phase_attention_bwd() -> dict:
 
     main = measure(TRAIN_ATTN_SHAPE, must_beat_earlier=True)
     d80 = measure(STABLELM_ATTN_SHAPE, must_beat_earlier=True)
-    d128 = measure(BWD_D128_SHAPE)
+    d128 = {"llama3.2-3b": measure(BWD_D128_SHAPE)}
     d32 = measure(D32_SHAPE)
     # the later families' training shapes: Qwen2-VL's group of 6, Whisper's
     # cross-attention and encoder (non-causal) and decoder
@@ -830,7 +850,7 @@ def phase_attention_bwd() -> dict:
                    for v in fa.VARIANT_CODES_BWD},
          main_path_shape=main, head_dim_80=d80, head_dim_128=d128,
          head_dim_32_no_config_at_full_width=d32)
-    return main, d80
+    return main, d80, d128
 
 
 def ssd_inputs(gen, B, S, H, P, G, N, dtype, with_init=False):
@@ -1223,8 +1243,8 @@ def phase_train(arch: str) -> dict:
     """`arch` trains at full width and depth: a warm-up step, then
     TRAIN_STEPS timed steps of the port's train step, with every kernel's
     count set to 0 just before them.  Each forward kernel inside a
-    checkpointed layer runs twice a step (the forward, and again under the
-    full remat's recompute), one outside (Zamba2's shared block) once, each
+    checkpointed layer or half runs twice a step (the forward, and again
+    under the remat's recompute), one outside (Zamba2's shared block) once, each
     backward once (`expected_launches`); the ops the arch does not have
     never; each through the CUDA kernels of the variant that the rule
     names."""
@@ -1235,7 +1255,7 @@ def phase_train(arch: str) -> dict:
     from repro_torch.optim import AdamWConfig, adamw_init
 
     cfg = get_config(arch)
-    if cfg.remat != "full" or cfg.param_dtype != torch.bfloat16:
+    if cfg.remat not in ("full", "comm") or cfg.param_dtype != torch.bfloat16:
         raise AssertionError(f"{arch}: remat {cfg.remat}, {cfg.param_dtype}")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = get_model(cfg).init(cfg, gen, "cuda")
@@ -1398,6 +1418,181 @@ def phase_train_parity_on_card(arch: str) -> None:
         raise AssertionError(f"training: kernel path and dense path disagree: {result}")
 
 
+def mapreduce_oracle(blocks, n_red: int) -> dict:
+    """The five workloads' results by plain numpy on the host, block by block
+    over every block (blocks spread over threads): wordcount and sort the
+    token histogram, inverted_index the number of blocks holding each token,
+    permutation the histogram of (t * 31 + t rolled by s within its block)
+    mod VOCAB for s in 0..3, grep the needle's count at [needle % n_red, 0];
+    each histogram split into n_red slices of VOCAB // n_red."""
+    def one(b):
+        hist = np.bincount(b, minlength=MR_VOCAB)
+        perm = sum(np.bincount((b * 31 + np.roll(b, s)) % MR_VOCAB, minlength=MR_VOCAB)
+                   for s in range(4))
+        return hist, perm, int(np.count_nonzero(b == MR_NEEDLE))
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count()) as pool:
+        parts = list(pool.map(one, blocks))
+    hist = sum(h for h, _, _ in parts)
+    grep = np.zeros((n_red, 1), np.int64)
+    grep[MR_NEEDLE % n_red, 0] = sum(g for _, _, g in parts)
+    return {"wordcount": hist.reshape(n_red, -1), "grep": grep,
+            "sort": hist.reshape(n_red, -1),
+            "permutation": sum(p for _, p, _ in parts).reshape(n_red, -1),
+            "inverted_index": sum((h > 0).astype(np.int64)
+                                  for h, _, _ in parts).reshape(n_red, -1)}
+
+
+def phase_mapreduce() -> dict:
+    """The paper's MapReduce data plane on the card: each of its five
+    workloads over one job of 2^30 tokens (4 GiB of int32 blocks on the
+    card) through `repro_torch.mapreduce.run_mapreduce`, element-equal to the
+    numpy oracle; each timed by CUDA events, the best of 3 after a warm-up,
+    beside the bound of reading its input once at the memory rate."""
+    from repro_torch.mapreduce import VOCAB, WORKLOAD_FNS, MRJob, make_blocks, run_mapreduce
+    from repro_torch.mapreduce.engine import MAP_BUDGET_BYTES, chunk_blocks
+
+    t_phase = time.perf_counter()
+    if VOCAB != MR_VOCAB:
+        raise AssertionError(f"the engine's VOCAB is {VOCAB}, the oracle's {MR_VOCAB}")
+    t0 = time.perf_counter()
+    host = make_blocks(MRJob("wordcount", **MR_JOB))
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = torch.from_numpy(host).cuda()
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = mapreduce_oracle(host, MR_JOB["n_reducers"])
+    oracle_s = time.perf_counter() - t0
+    del host
+    n_bytes = blocks.numel() * blocks.element_size()
+    bound_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    results = {}
+    for workload in WORKLOAD_FNS:
+        job = MRJob(workload, **MR_JOB)
+        out = run_mapreduce(job, blocks)                     # warm-up, and checked
+        want = oracle[workload]
+        if not (out.dtype == torch.int32 and tuple(out.shape) == want.shape
+                and np.array_equal(out.cpu().numpy(), want)):
+            raise AssertionError(f"mapreduce {workload} differs from the numpy oracle")
+        runs = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run_mapreduce(job, blocks)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        ms = min(runs)
+        results[workload] = {"ms": ms, "ms_each": runs,
+                             "input_gb_per_s": n_bytes / (ms / 1e3) / 1e9,
+                             "bound_ms": bound_ms, "bound_by": "bytes",
+                             "equal_to_oracle": True, "total": int(want.sum())}
+    result = {"job": MR_JOB, "tokens": blocks.numel(), "input_bytes": n_bytes,
+              "chunk_blocks": chunk_blocks(MR_JOB["block_tokens"]),
+              "map_budget_bytes": MAP_BUDGET_BYTES, "make_blocks_s": make_s,
+              "host_to_device_s": h2d_s, "oracle_s": oracle_s,
+              "workloads": results,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "seconds": time.perf_counter() - t_phase}
+    emit("mapreduce", **result)
+    return result
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal type, shape and bits (floats compared as integers of their
+    width)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        width = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        a, b = a.view(width), b.view(width)
+    return bool(torch.equal(a, b))
+
+
+def phase_checkpoint() -> dict:
+    """CKPT_ARCH at full width and depth, bf16, after one train step (so the
+    moments are not zero): params and AdamW state in the JAX package's
+    layout, saved by `AsyncCheckpointer` into a temporary directory (removed
+    afterwards), then restored by `restore_checkpoint` into a fresh template
+    on the card.  Every restored leaf must equal the saved one bit for bit;
+    then one train step from the restored state and one from the live state,
+    on the same batch, must give the same loss, params and moments, bit for
+    bit."""
+    from repro_torch.checkpoint import (AsyncCheckpointer, from_jax_train_state,
+                                        restore_checkpoint, to_jax_train_state)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import get_model, tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    cfg = get_config(CKPT_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = get_model(cfg).init(cfg, gen, "cuda")
+    opt = adamw_init(params)
+    batch = _train_batch(cfg)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT))
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    state = to_jax_train_state(cfg, params, opt)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    n_leaves = len(tree_leaves(state))
+    with tempfile.TemporaryDirectory(prefix="ckpt-", dir=ROOT / "build") as d:
+        ck = AsyncCheckpointer(d)
+        t0 = time.perf_counter()
+        ck.save(1, state)                   # device -> host on this thread
+        copy_s = time.perf_counter() - t0
+        del state
+        ck.wait()                           # the worker's write
+        save_s = time.perf_counter() - t0
+        file_bytes = (Path(d) / "step_1" / "arrays.npz").stat().st_size
+        meta = tree_map(lambda t: t.to("meta"), {"params": params, "opt": opt})
+        template = to_jax_train_state(cfg, meta["params"], meta["opt"])
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(d, 1, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    params_r, opt_r = from_jax_train_state(cfg, restored)
+    del restored
+    live_leaves = tree_leaves({"params": params, "opt": opt})
+    back_leaves = tree_leaves({"params": params_r, "opt": opt_r})
+    differ = sum(not same_bits(a, b) for a, b in zip(live_leaves, back_leaves))
+    if differ or len(live_leaves) != len(back_leaves):
+        raise AssertionError(f"{differ} of {len(live_leaves)} leaves differ after "
+                             f"the restore ({len(back_leaves)} restored)")
+    # one more step from each, on the same batch: the restored state is the
+    # live one as far as training can tell
+    params_r, opt_r, m_r = step(params_r, opt_r, batch)
+    params, opt, m_l = step(params, opt, batch)
+    live_leaves = tree_leaves({"params": params, "opt": opt})
+    back_leaves = tree_leaves({"params": params_r, "opt": opt_r})
+    step_differ = sum(not same_bits(a, b) for a, b in zip(live_leaves, back_leaves))
+    loss_equal = same_bits(m_r["loss"], m_l["loss"])
+    result = {"arch": CKPT_ARCH, "dtype": "bfloat16", "leaves": n_leaves,
+              "state_bytes": n_bytes, "file_bytes": file_bytes,
+              "copy_to_host_s": copy_s, "save_s": save_s,
+              "save_gb_per_s": n_bytes / save_s / 1e9,
+              "restore_s": restore_s, "restore_gb_per_s": n_bytes / restore_s / 1e9,
+              "restored_bit_for_bit": True,
+              "step_after_restore": {"loss_restored": float(m_r["loss"]),
+                                     "loss_live": float(m_l["loss"]),
+                                     "loss_equal": loss_equal,
+                                     "leaves_that_differ": step_differ},
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "seconds": time.perf_counter() - t_phase}
+    emit("checkpoint", **result)
+    if step_differ or not loss_equal:
+        raise AssertionError(f"the step after the restore differs from the live "
+                             f"one: {result['step_after_restore']}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1407,9 +1602,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
     smi_line = phase_env()
     phase_build(verbose="--verbose-build" in sys.argv[1:])
-    k1, k1_d80, k1_later = phase_kernels()
+    k1, k1_d80, k1_later, k1_d128 = phase_kernels()
     k2 = phase_ssd_kernels()
     k2b = phase_ssd_bwd_kernels()
+    release()
+    phase_mapreduce()
     serves = {}
     for arch in SERVE_ARCHS:
         release()
@@ -1417,7 +1614,7 @@ def main() -> int:
     for arch in PARITY_ARCHS:
         release()
         phase_parity_on_card(arch)
-    k1b, k1b_d80 = phase_attention_bwd()
+    k1b, k1b_d80, k1b_d128 = phase_attention_bwd()
     trained = {}
     for arch in TRAIN_ARCHS:
         release()
@@ -1426,6 +1623,8 @@ def main() -> int:
         phase_train_parity_on_card(arch)
         release()
         phase_train_parity_bf16(arch)
+    release()
+    phase_checkpoint()
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
@@ -1440,7 +1639,10 @@ def main() -> int:
     # recurrences, the column and the row owners, ddt, the sums); K1 and K1b
     # also at stablelm-3b's head dim 80, with the launches of its paths;
     # `launches_later_families` the same counts on the paths of Qwen2-VL,
-    # Zamba2 and Whisper, and `later_families` the timings at their shapes
+    # Zamba2 and Whisper, and `later_families` the timings at their shapes;
+    # `launches_dense_head_dim_128` the counts on llama3.2-3b's and
+    # nemotron-4-15b's paths (nemotron-4-15b is not trained), and K1's and
+    # K1b's `dense_head_dim_128` the timings at their shapes
     def served(arch, op):
         return serves[arch]["launches_by_kernel"][op]
 
@@ -1448,24 +1650,32 @@ def main() -> int:
         return trained[arch]["launches_by_kernel"][op]
 
     later_archs = ("qwen2-vl-2b", "zamba2-1.2b", "whisper-large-v3")
+    d128_archs = ("llama3.2-3b", "nemotron-4-15b")
+    at_d128 = {"flash_attention_fwd": k1_d128, "flash_attention_bwd": k1b_d128}
     at_d80 = {"flash_attention_fwd": (k1_d80, served("stablelm-3b", "flash_attention_fwd")),
               "flash_attention_bwd": (k1b_d80, train_launches("stablelm-3b",
                                                               "flash_attention_bwd"))}
     rows = []
-    for name, source, replaces, numbers, launches, later_launches in (
+    for name, source, replaces, numbers, launches, later_launches, d128_launches in (
             ("flash_attention_fwd", fa.SOURCE,
              "src/repro/kernels/flash_attention/kernel.py:32", k1,
              served("tinyllama-1.1b", "flash_attention_fwd"),
-             {a: served(a, "flash_attention_fwd") for a in later_archs}),
+             {a: served(a, "flash_attention_fwd") for a in later_archs},
+             {a: served(a, "flash_attention_fwd") for a in d128_archs}),
             ("ssd_scan_fwd", ssd.SOURCE, "src/repro/kernels/ssd_scan/kernel.py:27",
              k2, served("mamba2-1.3b", "ssd_scan_fwd"),
-             {a: served(a, "ssd_scan_fwd") for a in later_archs}),
+             {a: served(a, "ssd_scan_fwd") for a in later_archs},
+             {a: served(a, "ssd_scan_fwd") for a in d128_archs}),
             ("flash_attention_bwd", fa.SOURCE_BWD, "src/repro/models/flash.py:197",
              k1b, train_launches("tinyllama-1.1b", "flash_attention_bwd"),
-             {a: train_launches(a, "flash_attention_bwd") for a in later_archs}),
+             {a: train_launches(a, "flash_attention_bwd") for a in later_archs},
+             {a: train_launches(a, "flash_attention_bwd") for a in d128_archs
+              if a in TRAIN_ARCHS}),
             ("ssd_scan_bwd", ssd.SOURCE_BWD, "src/repro/models/mamba2.py:42",
              k2b, train_launches("mamba2-1.3b", "ssd_scan_bwd"),
-             {a: train_launches(a, "ssd_scan_bwd") for a in later_archs})):
+             {a: train_launches(a, "ssd_scan_bwd") for a in later_archs},
+             {a: train_launches(a, "ssd_scan_bwd") for a in d128_archs
+              if a in TRAIN_ARCHS})):
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1481,6 +1691,7 @@ def main() -> int:
             "variant": numbers["variant"],
             "cuda_kernels_per_call": numbers["cuda_kernels_per_call"],
             "launches_later_families": later_launches,
+            "launches_dense_head_dim_128": d128_launches,
         })
         if name.startswith("ssd"):   # the fp32-pipe variant, timed in turns
             rows[-1]["earlier_variant"] = numbers["earlier_variant"]
@@ -1492,6 +1703,13 @@ def main() -> int:
                 "ms": d80["kernel_ms"], "earlier_ms": d80["earlier_ms"],
                 "library_ms": d80["library_ms"], "bound_ms": d80["bound_ms"],
                 "launches": launches}
+        if name in at_d128:
+            rows[-1]["dense_head_dim_128"] = {
+                arch: {"shape": t["shape"], "variant": t["variant"], "ms": t["kernel_ms"],
+                       "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+                       "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                       "max_abs_err": t["max_abs_err"], "launches": d128_launches.get(arch)}
+                for arch, t in at_d128[name].items()}
         timed_later = k1_later if name == "flash_attention_fwd" else \
             numbers.get("later_families", {})
         if timed_later:

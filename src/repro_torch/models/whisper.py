@@ -206,10 +206,18 @@ class WhisperModel:
 
         The cache's ``k`` and ``v`` are written IN PLACE; the learned
         position embedding is sliced at the host-side ``len`` (the reference
-        slices at the traced one)."""
+        slices at the traced one).  A step past the end of that table raises
+        (the reference clamps the slice's start, so every later token reuses
+        its last row)."""
         tokens = batch["tokens"]
         S1 = tokens.shape[1]
         cur = cache["len"]
+        table = params["pos_embed"].shape[0]
+        if cur + S1 > cfg.max_target_positions:
+            raise ValueError(
+                f"decode at positions {cur}..{cur + S1 - 1} is past "
+                f"max_target_positions {cfg.max_target_positions} (the learned "
+                f"position table has {table} rows)")
         x = L.embed(cfg, params["embed"], tokens)
         x = x + params["pos_embed"][cur:cur + S1].to(x.dtype)[None]
         for i, lp in enumerate(params["dec_layers"]):

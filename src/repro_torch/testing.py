@@ -3,12 +3,16 @@ for anyone holding one package against the other.  Takes numpy arrays only,
 so it imports no JAX."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.layout import layer_lists, stack_layers, unstack_layers
 from repro_torch.models.common import ModelConfig, resolve_device
+
+__all__ = ["to_torch", "to_numpy", "layer_lists", "from_jax_params",
+           "from_jax_opt_state", "to_jax_layout", "rel_err"]
 
 
 def to_torch(a: np.ndarray, device="cpu") -> torch.Tensor:
@@ -32,23 +36,6 @@ def _convert(tree: Any, device) -> Any:
     return to_torch(tree, device)
 
 
-def _unstack(tree: Any, i: int) -> Any:
-    if isinstance(tree, dict):
-        return {k: _unstack(v, i) for k, v in tree.items()}
-    return tree[i].contiguous()
-
-
-def layer_lists(cfg: ModelConfig) -> Dict[str, int]:
-    """The keys of the parameter tree that the JAX package stacks on a
-    leading layer axis and the port keeps as lists, and their lengths."""
-    if cfg.family in ("dense", "vlm", "ssm", "hybrid"):
-        return {"layers": cfg.num_layers}
-    if cfg.family == "encdec":
-        return {"enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers}
-    raise NotImplementedError(
-        f"parameter bridge for family {cfg.family!r} is not ported yet")
-
-
 def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     """The JAX package's parameter tree (nested dicts of numpy arrays) as the
     port's.  The JAX tree stacks the layers on a leading axis (``layers``;
@@ -61,12 +48,7 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     ``device`` (``cuda`` unless the caller names another; no card then
     raises)."""
     device = resolve_device(device)
-    lists = layer_lists(cfg)
-    params = _convert(tree, device)
-    for key, n in lists.items():
-        stacked = params[key]
-        params[key] = [_unstack(stacked, i) for i in range(n)]
-    return params
+    return unstack_layers(cfg, _convert(tree, device))
 
 
 def from_jax_opt_state(cfg: ModelConfig, state: dict, device="cuda") -> dict:
@@ -90,20 +72,7 @@ def to_jax_layout(cfg: ModelConfig, params: dict) -> dict:
         if isinstance(tree, dict):
             return {k: convert(v) for k, v in tree.items()}
         return to_numpy(tree)
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
-
-    lists = layer_lists(cfg)
-    for key, n in lists.items():
-        if len(params[key]) != n:
-            raise ValueError(f"{len(params[key])} {key}, config has {n}")
-    out = {k: convert(v) for k, v in params.items() if k not in lists}
-    for key in lists:
-        out[key] = stack([convert(lp) for lp in params[key]])
-    return out
+    return convert(stack_layers(cfg, params))
 
 
 def rel_err(a, b) -> float:

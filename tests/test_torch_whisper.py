@@ -343,3 +343,37 @@ def test_generate_serves_whisper_with_its_frames():
         nxt = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
         assert torch.equal(nxt, got[:, i:i + 1]), i
         seq = torch.cat([seq, nxt], dim=1)
+
+
+def test_decode_past_max_target_positions_raises():
+    """A decode step at or past ``max_target_positions`` raises, and names
+    it: the learned position table has no row there, and slicing it past its
+    end gave an empty slice that died later in a reshape.  The JAX package
+    clamps the slice's start (``dynamic_slice_in_dim``), so every token at or
+    past the end silently reuses the table's last row; recorded here, the
+    reference's behaviour, not the port's."""
+    jcfg, pcfg, jp, pp = _setup(12)
+    assert pcfg.max_target_positions == jcfg.max_target_positions == 256
+    model, jmodel = get_model(pcfg), jax_model(jcfg)
+    S = pcfg.max_target_positions - 1
+    enc, toks = _inputs(pcfg, 1, S + 2, seed=13)
+    _, jcache = jmodel.prefill(jcfg, jp, {"enc_embeds": jnp.asarray(enc),
+                                         "tokens": jnp.asarray(toks[:, :S])})
+    _, cache = model.prefill(pcfg, pp, {"enc_embeds": to_torch(enc),
+                                        "tokens": to_torch(toks[:, :S]).long()})
+    jcache["k"] = jnp.pad(jcache["k"], ((0, 0),) * 3 + ((0, 4), (0, 0)))
+    jcache["v"] = jnp.pad(jcache["v"], ((0, 0),) * 3 + ((0, 4), (0, 0)))
+    cache = serve.pad_cache_to(cache, S + 4)
+    # position 255, the table's last row: both sides agree
+    tok = toks[:, S:S + 1]
+    jd, jcache = jmodel.decode_step(jcfg, jp, jcache, {"tokens": jnp.asarray(tok)})
+    pd, cache = model.decode_step(pcfg, pp, cache, {"tokens": to_torch(tok).long()})
+    assert rel_err(pd, np.asarray(jd)) < TOL and cache["len"] == 256
+    # position 256: the port raises; the reference runs on row 255
+    tok = toks[:, S + 1:S + 2]
+    with pytest.raises(ValueError, match="max_target_positions 256"):
+        model.decode_step(pcfg, pp, cache, {"tokens": to_torch(tok).long()})
+    jd, _ = jmodel.decode_step(jcfg, jp, jcache, {"tokens": jnp.asarray(tok)})
+    assert np.isfinite(np.asarray(jd)).all()
+    clamped = jax.lax.dynamic_slice_in_dim(jp["pos_embed"], 256, 1, 0)
+    np.testing.assert_array_equal(np.asarray(clamped)[0], np.asarray(jp["pos_embed"])[255])
