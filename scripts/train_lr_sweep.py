@@ -2,11 +2,11 @@
 """How the port's first AdamW steps move the loss of an arch (tinyllama-1.1b
 unless ``--arch`` names another that takes token batches).
 
-    PYTHONPATH=src python3 scripts/train_lr_sweep.py [--arch A] [--steps N]
+    PYTHONPATH=src python3 scripts/train_lr_sweep.py [--arch A] [--steps N] [--layers L]
 
-Needs one CUDA card.  Full width and depth, bf16, remat "full", batch 8 x
-sequence 1024, random weights from seed 0 and the first batch of the
-synthetic pipeline, repeated.  Prints one JSON line each: the bf16 loss and
+Needs one CUDA card.  Full width and depth (``--layers`` cuts the depth),
+bf16, remat "full", batch 8 x sequence 1024, random weights from seed 0 and
+the first batch of the synthetic pipeline, repeated.  Prints one JSON line each: the bf16 loss and
 gradients of the kernel path against the dense path (relative error per
 leaf: the largest and the median), then the loss after every step for each
 (attention path, lr, warm-up steps of the schedule) and once with fp32
@@ -38,6 +38,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the arch's full depth)")
     args = ap.parse_args()
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,6 +47,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=1024, global_batch=8,
                       num_shards=64)
     batch = {k: torch.from_numpy(v).long().to(device) for k, v in
@@ -55,7 +59,7 @@ def main() -> None:
     loss_d, grads_d = loss_and_grads(cfg.replace(attn_impl="dense"), params0, batch)
     errs = sorted(rel_err(a, b) for a, b in zip(grads_k, grads_d))
     print(json.dumps({"phase": "bf16_kernel_vs_dense", "arch": args.arch,
-                      "nvidia_smi": smi,
+                      "layers": cfg.num_layers, "nvidia_smi": smi,
                       "loss_kernel": float(loss_k), "loss_dense": float(loss_d),
                       "max_grad_rel_err": errs[-1],
                       "median_grad_rel_err": errs[len(errs) // 2]}), flush=True)

@@ -17,13 +17,16 @@ from repro_torch.models.common import ModelConfig
 
 def layer_lists(cfg: ModelConfig) -> Dict[str, int]:
     """The keys of the parameter tree that the JAX package stacks on a
-    leading layer axis and the port keeps as lists, and their lengths."""
+    leading layer axis and the port keeps as lists, and their lengths.  An
+    MoE model's ``dense_layers`` (DeepSeek's first layers, with a plain FFN)
+    are a list in both packages and are not stacked."""
     if cfg.family in ("dense", "vlm", "ssm", "hybrid"):
         return {"layers": cfg.num_layers}
+    if cfg.family == "moe":
+        return {"layers": cfg.num_layers - cfg.n_dense_layers}
     if cfg.family == "encdec":
         return {"enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers}
-    raise NotImplementedError(
-        f"parameter bridge for family {cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def _stack(trees):

@@ -1,6 +1,6 @@
-"""Serving launcher: batched prefill, then decode from the KV cache (dense
-and Qwen2-VL archs), the recurrent state (mamba2-1.3b) or both
-(zamba2-1.2b), on one GPU.
+"""Serving launcher: batched prefill, then decode from the KV cache (dense,
+Qwen2-VL and Mixtral archs; DeepSeek's compressed MLA cache), the recurrent
+state (mamba2-1.3b) or both (zamba2-1.2b), on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --preset full --batch 8 --prompt-len 1024 --gen 64
@@ -25,10 +25,11 @@ from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.common import get_model, resolve_device
 
-# cache entries whose second-to-last dim is the sequence: the KV cache, and
-# Zamba2's shared attention's; a Mamba-2 state and conv windows do not grow,
-# and Whisper's cross K/V keep the encoder's length, so padding leaves them
-SEQ_KEYS = ("k", "v", "attn_k", "attn_v")
+# cache entries whose second-to-last dim is the sequence: the KV cache,
+# Zamba2's shared attention's and MLA's compressed cache; a Mamba-2 state and
+# conv windows do not grow, and Whisper's cross K/V keep the encoder's
+# length, so padding leaves them
+SEQ_KEYS = ("k", "v", "attn_k", "attn_v", "c_kv", "k_rope")
 ENCDEC_REFUSAL = ("whisper serving needs audio frontend inputs; "
                   "see tests/test_models_smoke.py for the API")
 

@@ -1,5 +1,5 @@
 """Training launcher of the port: a dense, Qwen2-VL (text-only batches),
-Mamba-2 or Zamba2 architecture on one device; Whisper (family ``encdec``),
+Mamba-2, Zamba2 or MoE (Mixtral, DeepSeek) architecture on one device; Whisper (family ``encdec``),
 whose loss needs its frontend's frame embeddings, is refused, as the
 reference's launcher refuses it.
 

@@ -147,12 +147,6 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 _REGISTRY: Dict[str, Any] = {}
 
-# families of the JAX package that the port does not have yet, and the slice
-# of the port that brings each
-UNPORTED_FAMILIES = {
-    "moe": "the MoE slice (Mixtral, DeepSeek MLA)",
-}
-
 
 def register(family: str):
     def deco(cls):
@@ -164,13 +158,10 @@ def register(family: str):
 def get_model(cfg: ModelConfig):
     """Return the model implementation class for ``cfg.family``."""
     # import for side-effect registration
-    from repro_torch.models import mamba2, transformer, whisper, zamba2  # noqa: F401
+    from repro_torch.models import (mamba2, moe, transformer, whisper,  # noqa: F401
+                                    zamba2)
     if cfg.family in _REGISTRY:
         return _REGISTRY[cfg.family]
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: it comes with "
-            f"{UNPORTED_FAMILIES[cfg.family]}")
     raise ValueError(f"unknown model family {cfg.family!r}; "
                      f"have {sorted(_REGISTRY)}")
 

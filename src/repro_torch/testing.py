@@ -33,6 +33,8 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def _convert(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_convert(v, device) for v in tree]
     return to_torch(tree, device)
 
 
@@ -40,7 +42,8 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
     """The JAX package's parameter tree (nested dicts of numpy arrays) as the
     port's.  The JAX tree stacks the layers on a leading axis (``layers``;
     Whisper's ``enc_layers`` and ``dec_layers``); the port keeps a list of
-    per-layer dicts.  Everything else keeps its layout: Zamba2's shared block
+    per-layer dicts.  Everything else keeps its layout: an MoE model's
+    ``dense_layers``, a list in both packages; Zamba2's shared block
     with its ``lora_a`` / ``lora_b`` stacked per application, Whisper's
     ``pos_embed``.  Linear weights are ``[d_in, d_out]`` on both sides, and
     every leaf keeps its type (the fp32 ``dt_bias``, ``A_log`` and ``D`` of a
@@ -71,6 +74,8 @@ def to_jax_layout(cfg: ModelConfig, params: dict) -> dict:
     def convert(tree):
         if isinstance(tree, dict):
             return {k: convert(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [convert(v) for v in tree]
         return to_numpy(tree)
     return convert(stack_layers(cfg, params))
 

@@ -103,26 +103,28 @@ def test_config_defaults_equal_jax_defaults():
 
 
 def test_arch_lists_and_unported_archs_say_which_slice():
+    """Every arch of the JAX package is ported (the MoE family last), and
+    each family resolves to its model class."""
     assert ALL_ARCHS == JAX_ARCHS
-    assert sorted(PORTED_ARCHS) == sorted(
-        DENSE + ["mamba2-1.3b", "qwen2-vl-2b", "zamba2-1.2b", "whisper-large-v3"])
-    unported = [a for a in ALL_ARCHS if a not in PORTED_ARCHS]
-    assert sorted(unported) == ["deepseek-v2-lite-16b", "mixtral-8x22b"]
-    for arch in unported:
+    assert sorted(PORTED_ARCHS) == sorted(ALL_ARCHS) == sorted(
+        DENSE + ["mamba2-1.3b", "qwen2-vl-2b", "zamba2-1.2b", "whisper-large-v3",
+                 "mixtral-8x22b", "deepseek-v2-lite-16b"])
+    for arch in ALL_ARCHS:
         for getter in (get_config, get_smoke_config):
-            with pytest.raises(NotImplementedError, match="MoE slice"):
-                getter(arch)
+            assert getter(arch).arch == arch
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-5")
     from repro_torch.models.mamba2 import Mamba2LM
+    from repro_torch.models.moe import MoETransformer
     from repro_torch.models.whisper import WhisperModel
     from repro_torch.models.zamba2 import Zamba2LM
     base = get_smoke_config("tinyllama-1.1b")
     assert get_model(base.replace(family="ssm")) is Mamba2LM
     assert get_model(base.replace(family="hybrid")) is Zamba2LM
     assert get_model(base.replace(family="encdec")) is WhisperModel
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        get_model(base.replace(family="moe"))
+    assert get_model(base.replace(family="moe")) is MoETransformer
+    for arch in ("mixtral-8x22b", "deepseek-v2-lite-16b"):
+        assert get_model(get_config(arch)) is MoETransformer
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(get_smoke_config("tinyllama-1.1b").replace(family="rnn"))
     with pytest.raises(ValueError, match="not a torch dtype"):

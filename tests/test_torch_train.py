@@ -14,6 +14,7 @@ update difference of up to lr: those elements are counted, and each must be
 one of them.
 """
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -509,11 +510,15 @@ def test_train_launcher_trains_mamba2_on_the_cpu(capsys):
     assert result["losses"][-1] < result["losses"][0]
 
 
-def test_train_refuses_an_arch_without_a_training_path():
-    """A family the port has not ported (mixtral's moe) refuses, and says
-    which slice brings it."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train.main(["--arch", "mixtral-8x22b", "--device", "cpu", "--steps", "1"])
+def test_train_refuses_an_arch_without_a_training_path(capsys):
+    """The launcher refused mixtral-8x22b while the MoE family was not
+    ported; it now trains its smoke config on the CPU, the loss finite."""
+    train.main(["--arch", "mixtral-8x22b", "--preset", "smoke", "--device", "cpu",
+                "--steps", "2"])
+    out = capsys.readouterr().out
+    assert "[train] mixtral-8x22b" in out and "on 1 device (cpu)" in out
+    losses = [float(x) for x in re.findall(r"step +\d+ loss (\S+)", out)]
+    assert len(losses) == 2 and all(map(math.isfinite, losses))
 
 
 def test_quickstart_torch_runs_on_the_cpu(capsys):

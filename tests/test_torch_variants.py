@@ -16,7 +16,12 @@ from repro_torch.configs import PORTED_ARCHS, get_config
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.ssd_scan import kernel as ssd
 
-ATTENTION_ARCHS = [a for a in PORTED_ARCHS if get_config(a).family != "ssm"]
+# every ported config whose attention can take the kernel: not Mamba-2, and
+# not DeepSeek's MLA, whose q/k head dim (nope + rope: 192) is not the
+# config's d_model / n_heads and which passes explicit positions, so it runs
+# the dense path (tests/test_torch_moe.py holds that rule)
+ATTENTION_ARCHS = [a for a in PORTED_ARCHS
+                   if get_config(a).family != "ssm" and not get_config(a).kv_lora_rank]
 # every ported config that runs the scan: Mamba-2 (ssm) and Zamba2 (hybrid)
 SSM_ARCHS = [a for a in PORTED_ARCHS if get_config(a).family in ("ssm", "hybrid")]
 
@@ -24,8 +29,8 @@ SSM_ARCHS = [a for a in PORTED_ARCHS if get_config(a).family in ("ssm", "hybrid"
 @pytest.mark.parametrize("arch", ATTENTION_ARCHS)
 def test_attention_variant_of_every_ported_config(arch):
     """bf16 at every ported config's head dim (64: tinyllama-1.1b; 80:
-    stablelm-3b; 128: llama3.2-3b, nemotron-4-15b) runs the wgmma kernel
-    forward and backward; float32 always the fp32-pipe one."""
+    stablelm-3b; 128: llama3.2-3b, nemotron-4-15b, mixtral-8x22b) runs the
+    wgmma kernel forward and backward; float32 always the fp32-pipe one."""
     d = get_config(arch).resolved_head_dim
     assert fa.variant(torch.bfloat16, d) == "fa_fwd_wgmma"
     assert fa.variant_bwd(torch.bfloat16, d) == "fa_bwd_wgmma"
