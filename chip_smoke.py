@@ -5,7 +5,8 @@
 
 Needs one NVIDIA Hopper card, `nvcc` and nothing else; no network.  It builds
 the port's kernels (flash attention forward and backward, the Mamba-2 SSD
-scan forward and backward) from the sources in this checkout, holds each
+scan forward and backward, the fluid surrogate's scan) from the sources in
+this checkout, holds each
 against its plain PyTorch version on the card (naming the CUDA kernels that
 each call launched, as the C functions count them), times the attention
 forward and backward in turns against their earlier variants and PyTorch's
@@ -25,7 +26,11 @@ through the port's train step), at full depth but the MoE archs' (6 layers
 of deepseek-v2-lite-16b, 1 of mixtral-8x22b), holds the kernel paths against
 the dense paths (fp32, and bf16 for the gradients), checks the results, and
 saves and restores tinyllama-1.1b's full training state (the step after it
-bit for bit).
+bit for bit).  The paper's batched fluid surrogate runs on the card too: the
+1000-cell grid of benchmarks/bench_surrogate.py through the port's
+`experiments.surrogate.run_surrogate` on the fluid-scan kernel, which is held
+against its plain version over the calibration cells and a bucket larger
+than its block, with the determinism contract checked on the card.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device it prints no result and exits with code 1.
@@ -256,6 +261,23 @@ MR_VOCAB, MR_NEEDLE = 4096, 7
 # The checkpoint phase's model: its full training state (bf16 params, fp32
 # moments) saved, restored, and stepped on
 CKPT_ARCH = "tinyllama-1.1b"
+# The fluid surrogate: the grid of benchmarks/bench_surrogate.py (the
+# heavy_tail preset on a 200-machine x 2-VM fleet, replication 2, the five
+# lowerable policies x 200 seeds: 1000 cells of 80 jobs, padded to 128, 512
+# steps), the calibration cells (the CALIBRATED presets at 20 x 2, seeds 0-3),
+# and one bucket larger than the kernel's block: 1500 jobs of the `mix`
+# preset arriving at 7200 an hour on 200 x 2 (2048 padded jobs)
+SUR_POLICIES = ("proposed", "fair", "fifo", "delay", "edf_nopark")
+SUR_GRID_SEEDS = 200
+SUR_BIG = dict(num_jobs=1500, rate_per_hour=7200.0)
+SUR_SUBBATCH = 64          # the original's sub-batch: the plain version's timing
+SUR_LOCALITY_TOL = 1e-6
+SUR_DIAG_RTOL = 1e-5       # of each aggregate's largest value over the run
+# fp32 operations of one integrated step a padded job, counted for the bound:
+# the four rings' sums over 64 columns (63 adds each) and some 80 elementwise
+# operations; the allocators' rounds, which depend on the data, are left out,
+# so the bound is below what the data needs
+FLUID_OPS_PER_JOB_STEP = 4 * 63 + 80
 
 
 def emit(phase: str, **fields) -> None:
@@ -275,8 +297,9 @@ def cuda_kernel_counts() -> dict:
     loaded, as the C functions count them (the SSD scan's: forward and
     backward)."""
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.fluid_scan import kernel as fluid
     from repro_torch.kernels.ssd_scan import kernel as kssd
-    return {**fa.launch_counts(), **kssd.launch_counts()}
+    return {**fa.launch_counts(), **kssd.launch_counts(), **fluid.launch_counts()}
 
 
 def cuda_kernels_since(before: dict) -> dict:
@@ -641,14 +664,15 @@ def phase_build(verbose: bool) -> None:
     """Every kernel source, one nvcc each, started together."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.fluid_scan import kernel as fluid
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    sources = (fa.SOURCE, fa.SOURCE_BWD, ssd.SOURCE, ssd.SOURCE_BWD)
+    sources = (fa.SOURCE, fa.SOURCE_BWD, ssd.SOURCE, ssd.SOURCE_BWD, fluid.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = list(pool.map(lambda src: _build.build(src, verbose), sources))
-    fa.load(), fa.load_bwd(), ssd.load(), ssd.load_bwd()
+    fa.load(), fa.load_bwd(), ssd.load(), ssd.load_bwd(), fluid.load()
     emit("build", kernels=["flash_attention_fwd", "flash_attention_bwd",
-                           "ssd_scan_fwd", "ssd_scan_bwd"],
+                           "ssd_scan_fwd", "ssd_scan_bwd", "fluid_scan"],
          sources=[str(src.relative_to(ROOT)) for src in sources],
          libraries=[str(lib.relative_to(ROOT)) for lib in libs],
          seconds=round(time.perf_counter() - t0, 3))
@@ -1908,6 +1932,266 @@ def phase_checkpoint() -> dict:
     return result
 
 
+def sur_fingerprint(res) -> tuple:
+    """Every number of a surrogate result that a run record keeps, exact."""
+    return (res.makespan, res.jobs_total, res.jobs_finished, res.deadlines_met,
+            res.locality_rate, res.latched_steps, res.steps_integrated,
+            tuple((j.job_id, j.finish_time, j.local_map_launches,
+                   j.remote_map_launches) for j in res.jobs))
+
+
+def plain_fluid_scan(jobs, order, scalars, phys, *, n_steps, diag=False):
+    """The fluid scan's plain version, on whatever device its inputs are."""
+    from repro_torch.kernels.fluid_scan.ref import fluid_scan_ref
+    return fluid_scan_ref(jobs, order, scalars, phys, n_steps=n_steps, diag=diag)
+
+
+@contextlib.contextmanager
+def patched(module, name: str, fn):
+    """`module.name` is `fn` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def sur_compare(k3_results, plain_results) -> dict:
+    """K3 against the plain version, cell by cell: every finish time equal,
+    the locality rate within SUR_LOCALITY_TOL; the largest difference of a
+    finish time, a job's launch mass or a locality rate."""
+    err = 0.0
+    for a, b in zip(k3_results, plain_results):
+        fa_, fb = [j.finish_time for j in a.jobs], [j.finish_time for j in b.jobs]
+        if fa_ != fb:
+            raise AssertionError(f"fluid_scan moved a finish time: {len(fa_)} jobs, "
+                                 f"{sum(x != y for x, y in zip(fa_, fb))} differ")
+        if abs(a.locality_rate - b.locality_rate) > SUR_LOCALITY_TOL:
+            raise AssertionError(f"fluid_scan locality {a.locality_rate} vs plain "
+                                 f"{b.locality_rate}")
+        err = max([err, abs(a.locality_rate - b.locality_rate)]
+                  + [abs(x.local_map_launches - y.local_map_launches)
+                     + abs(x.remote_map_launches - y.remote_map_launches)
+                     for x, y in zip(a.jobs, b.jobs)])
+    bitwise = sum(sur_fingerprint(a) == sur_fingerprint(b)
+                  for a, b in zip(k3_results, plain_results))
+    return {"cells": len(k3_results), "max_abs_err": err, "cells_bit_equal": bitwise}
+
+
+def fluid_bound_ms(cells: int, jp: int, steps: int) -> tuple:
+    """The least time for `cells` cells of `jp` padded jobs that integrate
+    `steps` steps between them a cell on average: the larger of the inputs
+    read once and the outputs written once at the memory rate, and
+    FLUID_OPS_PER_JOB_STEP fp32 operations a job and step at the fp32 peak."""
+    n_bytes = cells * (jp * (10 + 1 + 5) * 4 + 11 * 4 + 8)
+    ops = cells * jp * steps * FLUID_OPS_PER_JOB_STEP
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes > by_ops else "operations")
+
+
+def phase_surrogate() -> dict:
+    """The paper's batched fluid surrogate on the card (K3): the bench grid of
+    1000 cells through `experiments.surrogate.run_surrogate` into a temporary
+    cache, timed by parts (the host's trace and cell build, the integration,
+    K3 by CUDA events); K3 against its plain version on the card over the
+    calibration cells (each preset's allowlisted policies and fair, seeds
+    0-3, the gains over fair printed), one cell's diagnostics and the
+    oversized bucket; the determinism contract on the card (a second run
+    byte-equal, the reversed batch and max_batch 1 equal cell by cell); the
+    plain version's time on one 64-cell sub-batch of the grid beside K3's."""
+    import dataclasses
+
+    from repro_torch.core.types import ClusterSpec
+    from repro_torch.experiments import surrogate as texp
+    from repro_torch.experiments.runner import ExperimentSpec, TraceRef
+    from repro_torch.experiments.stats import compare_throughput
+    from repro_torch.kernels.fluid_scan import kernel as fluid
+    from repro_torch.kernels.fluid_scan import ops as fluid_ops
+    from repro_torch.simcluster import surrogate as tsur
+    from repro_torch.simcluster.traces import PRESETS, _dumps
+
+    t_phase = time.perf_counter()
+    grid = ExperimentSpec(
+        name="bench-surrogate-fleet", traces=(TraceRef(preset="heavy_tail"),),
+        clusters=(ClusterSpec(num_machines=200, vms_per_machine=2, replication=2),),
+        schedulers=SUR_POLICIES, seeds=tuple(range(SUR_GRID_SEEDS)))
+    first = next(iter(grid.cells()))
+    warm = tsur.build_cell(first.trace.resolve(0), first.cluster, first.scheduler, 0)
+    tsur.run_batch([warm], device="cuda")          # loads the kernel: not counted
+    torch.cuda.synchronize()
+
+    # -- 1. the grid through the entry point, timed by parts
+    host = {"build_s": 0.0, "integrate_s": 0.0}
+    events, batches = [], []
+    build_cell, run_batch, scan = texp.build_cell, texp.run_batch, fluid_ops.fluid_scan
+
+    def timed_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = build_cell(*args, **kwargs)
+        host["build_s"] += time.perf_counter() - t0
+        return out
+
+    def timed_run_batch(cells, **kwargs):
+        t0 = time.perf_counter()
+        out = run_batch(cells, **kwargs)
+        torch.cuda.synchronize()
+        host["integrate_s"] += time.perf_counter() - t0
+        batches.append((list(cells), out))
+        return out
+
+    def timed_scan(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = scan(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="surrogate-", dir=ROOT / "build") as d:
+        with patched(texp, "build_cell", timed_build), \
+                patched(texp, "run_batch", timed_run_batch), \
+                patched(fluid_ops, "fluid_scan", timed_scan):
+            scan.launches = 0
+            before = fluid.launch_counts()
+            t0 = time.perf_counter()
+            report = texp.run_surrogate(grid, Path(d) / "grid", device="cuda")
+            total_s = time.perf_counter() - t0
+            launches = scan.launches
+            c_launches = {k: n - before[k] for k, n in fluid.launch_counts().items()}
+    torch.cuda.synchronize()
+    kernel_ms = [s.elapsed_time(e) for s, e in events]
+    (cells, results), = batches
+    records = report.records
+    if report.simulated != grid.n_cells() or len(records) != grid.n_cells():
+        raise AssertionError(f"run_surrogate integrated {report.simulated} of "
+                             f"{grid.n_cells()} cells")
+    for r in records:
+        if not (r.jobs_total == r.jobs_finished == 80 and math.isfinite(r.makespan)
+                and r.makespan > 0 and 0.0 <= r.locality_rate <= 1.0
+                and all(math.isfinite(j.local_map_launches + j.remote_map_launches)
+                        for j in r.jobs)):
+            raise AssertionError(f"a grid cell is wrong: {r.scheduler} seed {r.seed}: "
+                                 f"{r.jobs_finished}/{r.jobs_total} jobs, makespan "
+                                 f"{r.makespan}, locality {r.locality_rate}")
+    if launches < 1 or c_launches.get("fluid_scan_kernel") != launches:
+        raise AssertionError(f"the grid ran K3 {launches} times (C counted {c_launches})")
+    buckets = sorted({(c.padded_jobs(), c.n_steps()) for c in cells})
+    steps = [r.steps_integrated for r in results]
+    (jp, n_steps), = buckets
+    grid_bound, grid_bound_by = fluid_bound_ms(len(cells), jp, sum(steps) / len(steps))
+    grid_out = {
+        "cells": len(cells), "buckets": buckets, "launches": launches,
+        "cuda_kernel_launches": c_launches,
+        "host_build_s": host["build_s"], "integrate_s": host["integrate_s"],
+        "run_surrogate_s": total_s,
+        "cells_per_s": len(cells) / total_s,
+        "cells_per_s_build_and_integrate": len(cells) / (host["build_s"] + host["integrate_s"]),
+        "kernel_ms_each": kernel_ms, "kernel_ms": sum(kernel_ms) / len(kernel_ms),
+        "steps_integrated_max": max(steps), "steps_integrated_min": min(steps),
+        "horizon_steps": n_steps,
+        "us_per_integrated_step": sum(kernel_ms) * 1e3 / max(steps),
+        "bound_ms": grid_bound, "bound_by": grid_bound_by,
+        "jobs_finished": sum(r.jobs_finished for r in records)}
+
+    # -- 2. K3 against the plain version: one 64-cell sub-batch of the grid,
+    # timed; the calibration cells through run_surrogate; one diagnostics run;
+    # the oversized bucket
+    sub = cells[:SUR_SUBBATCH]
+    jobs, order, scalars = tsur._stack(sub, torch.device("cuda"))
+    k3_ms = time_ms(lambda: scan(jobs, order, scalars, tsur.PHYSICS, n_steps=n_steps), 5)
+    plain_ms = time_ms(lambda: plain_fluid_scan(jobs, order, scalars, tsur.PHYSICS,
+                                                n_steps=n_steps), 1, warmup=1)
+    with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
+        plain_sub = tsur.run_batch(sub, device="cuda")
+    checks = {"grid_subbatch": sur_compare(results[:SUR_SUBBATCH], plain_sub)}
+    sub_bound, sub_bound_by = fluid_bound_ms(len(sub), jp, sum(steps[:SUR_SUBBATCH]) / len(sub))
+
+    gains, cal_k3, cal_plain = {}, [], []
+    with tempfile.TemporaryDirectory(prefix="surrogate-", dir=ROOT / "build") as d:
+        for (preset, shape), allow in sorted(texp.CALIBRATED.items()):
+            machines, vms = (int(x) for x in shape.split("x"))
+            spec = ExperimentSpec(
+                name=f"cal-{preset}-{shape}", traces=(TraceRef(config=PRESETS[preset]),),
+                clusters=(ClusterSpec(num_machines=machines, vms_per_machine=vms,
+                                      replication=1),),
+                schedulers=allow + ("fair",), seeds=texp.CALIBRATION_SEEDS)
+            k3_rep = texp.run_surrogate(spec, Path(d) / "k3", device="cuda")
+            again = texp.run_surrogate(spec, Path(d) / "again", device="cuda")
+
+            def dumped(rep):
+                return [_dumps({k: v for k, v in r.to_dict().items() if k != "wall_time_s"})
+                        for r in rep.records]
+
+            if dumped(k3_rep) != dumped(again):
+                raise AssertionError(f"{preset}: a second run differs")
+            by = k3_rep.by_scheduler()
+            gains[f"{preset}/{shape}"] = {
+                pol: compare_throughput(by["fair"], by[pol]).mean_gain_pct for pol in allow}
+            for rec in k3_rep.records:
+                trace = TraceRef(config=PRESETS[preset]).resolve(rec.seed)
+                cal_k3.append(tsur.build_cell(trace, spec.clusters[0], rec.policy, rec.seed))
+    # K3 against the plain version over the calibration cells, and the
+    # contract there: the batch reversed, one cell a launch, equal cell by cell
+    base = tsur.run_batch(cal_k3, device="cuda")
+    with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
+        cal_plain = tsur.run_batch(cal_k3, device="cuda")
+    checks["calibration"] = sur_compare(base, cal_plain)
+    reversed_ = tsur.run_batch(cal_k3[::-1], device="cuda")[::-1]
+    one_by_one = tsur.run_batch(cal_k3, device="cuda", max_batch=1)
+    grid_again = tsur.run_batch(cells, device="cuda")
+    contract = {
+        "reversed_equal": [sur_fingerprint(r) for r in reversed_] == [sur_fingerprint(r) for r in base],
+        "max_batch_1_equal": [sur_fingerprint(r) for r in one_by_one] == [sur_fingerprint(r) for r in base],
+        "grid_second_run_equal": [sur_fingerprint(r) for r in grid_again] == [sur_fingerprint(r) for r in results],
+        "calibration_second_run_byte_equal": True}
+    if not all(contract.values()):
+        raise AssertionError(f"the determinism contract fails on the card: {contract}")
+    # one cell's diagnostics over the whole horizon
+    cell = cal_k3[0]
+    dk = tsur.run_cell(cell, diag=True, device="cuda")
+    with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
+        dp = tsur.run_cell(cell, diag=True, device="cuda")
+    diag_err = {}
+    for k in dk.diag:
+        a, b = dp.diag[k], dk.diag[k]
+        if k == "lf":
+            a, b = a * dp.diag["launched_m"], b * dk.diag["launched_m"]
+        diag_err[k] = float(np.abs(a - b).max())
+        if diag_err[k] > SUR_DIAG_RTOL * max(float(np.abs(a).max()), 1.0):
+            raise AssertionError(f"diag {k}: K3 and the plain version differ by {diag_err[k]}")
+    checks["diag"] = {"steps": dk.steps_integrated, "diag_max_abs_err": diag_err,
+                      **sur_compare([dk], [dp])}
+    # the oversized bucket: more padded jobs than the kernel's block has threads
+    cfg = PRESETS["mix"]
+    big_cfg = dataclasses.replace(cfg, name="mix_big", num_jobs=SUR_BIG["num_jobs"],
+                                  arrival=dataclasses.replace(
+                                      cfg.arrival, rate_per_hour=SUR_BIG["rate_per_hour"]))
+    big_trace = TraceRef(config=big_cfg).resolve(0)
+    big_cluster = ClusterSpec(num_machines=200, vms_per_machine=2, replication=2)
+    big = [tsur.build_cell(big_trace, big_cluster, pol, 0) for pol in ("proposed", "fair")]
+    if big[0].padded_jobs() <= 256:
+        raise AssertionError(f"the oversized bucket has {big[0].padded_jobs()} jobs")
+    big_k3 = tsur.run_batch(big, device="cuda")
+    with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
+        big_plain = tsur.run_batch(big, device="cuda")
+    checks["oversized"] = {"bucket": [big[0].padded_jobs(), big[0].n_steps()],
+                           "jobs": big[0].n_jobs,
+                           "steps": [r.steps_integrated for r in big_k3],
+                           **sur_compare(big_k3, big_plain)}
+    max_err = max(c["max_abs_err"] for c in checks.values())
+    result = {"grid": grid_out, "gains_over_fair_pct": gains, "k3_vs_plain": checks,
+              "contract": contract,
+              "subbatch": {"cells": len(sub), "bucket": [jp, n_steps], "kernel_ms": k3_ms,
+                           "plain_ms": plain_ms, "bound_ms": sub_bound,
+                           "bound_by": sub_bound_by},
+              "max_abs_err": max_err,
+              "seconds": time.perf_counter() - t_phase}
+    emit("surrogate", **result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1923,6 +2207,8 @@ def main() -> int:
     k2b = phase_ssd_bwd_kernels()
     release()
     phase_mapreduce()
+    release()
+    sur = phase_surrogate()
     serves = {}
     for arch in SERVE_ARCHS:
         release()
@@ -2052,6 +2338,25 @@ def main() -> int:
         if name == "flash_attention_fwd":
             rows[-1]["later_families"]["mixtral-8x22b window"]["launches"] = \
                 window["launches_by_kernel"]["flash_attention_fwd"]
+    # the fluid surrogate's scan (jnp in the JAX package, a kernel here):
+    # launches on the bench grid, ms / plain_ms / bound_ms on one 64-cell
+    # sub-batch of it, and the grid's own launch beside its bound
+    from repro_torch.kernels.fluid_scan import kernel as fluid
+    g, s = sur["grid"], sur["subbatch"]
+    rows.append({
+        "name": "fluid_scan", "route": "cuda",
+        "source": str(fluid.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/simcluster/surrogate.py:405",
+        "launches": g["launches"], "max_abs_err": sur["max_abs_err"],
+        "ms": s["kernel_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": s["bound_by"], "library_ms": None,
+        "variant": "fluid_scan_kernel", "cuda_kernels_per_call": 1,
+        "shape": {"cells": s["cells"], "padded_jobs": s["bucket"][0],
+                  "horizon_steps": s["bucket"][1]},
+        "grid": {"cells": g["cells"], "ms": g["kernel_ms"], "bound_ms": g["bound_ms"],
+                 "bound_by": g["bound_by"], "launches": g["launches"],
+                 "steps_integrated": g["steps_integrated_max"],
+                 "us_per_integrated_step": g["us_per_integrated_step"]}})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

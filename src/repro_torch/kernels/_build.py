@@ -38,11 +38,21 @@ def _find_nvcc(source: Path) -> str:
     return nvcc
 
 
+# flags that one source adds to NVCC_FLAGS, by its stem: the fluid scan
+# rounds every product before the sum it feeds, as PyTorch's separate
+# operations do, so it is built without fused multiply-adds
+SOURCE_FLAGS: Dict[str, tuple] = {"fluid_scan": ("-fmad=false",)}
+
+
+def _flags(source: Path) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(source.stem, ())
+
+
 def library_path(source: Path) -> Path:
     """Where the library of ``source`` is, or will be, built."""
     headers = b"".join(h.read_bytes() for h in sorted(HEADER_DIR.glob("*.cuh")))
     digest = hashlib.sha256(source.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(_flags(source)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
@@ -54,7 +64,7 @@ def build(source: Path, verbose: bool = False) -> Path:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp_path = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_find_nvcc(source), *NVCC_FLAGS]
+    cmd = [_find_nvcc(source), *_flags(source)]
     if verbose:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", str(tmp_path), str(source)]

@@ -1,0 +1,123 @@
+"""Load and launch the CUDA fluid scan (K3).
+
+The source ``csrc/fluid_scan.cu`` is compiled at first use by
+``repro_torch.kernels._build`` (``nvcc`` into ``build/``, without fused
+multiply-adds, loaded with ``ctypes``).  One launch integrates every cell of
+one (jobs, steps) bucket, one block a cell for the whole horizon.  The four
+rings live in shared memory up to 128 padded jobs and in a global scratch
+buffer that this wrapper allocates above that.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fluid_scan.ref import (DIAG_FIELDS, JOB_FIELDS, RING,
+                                                SCALAR_FIELDS, FluidPhysics)
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "fluid_scan.cu"
+#: the padded job counts the kernel takes: powers of two in this range
+MIN_JOBS, MAX_JOBS = 8, 2048
+#: above this bucket the rings live in global scratch, not shared memory
+SMEM_RING_JOBS = 128
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the library where it is not there yet; return its path."""
+    return _build.build(SOURCE, verbose)
+
+
+def load() -> ctypes.CDLL:
+    """The loaded library, built first if need be."""
+    global _lib
+    if _lib is None:
+        lib = _build.load(SOURCE)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fluid_scan.argtypes = ([ptr] * 4 + [i32] + [ptr] * 9 + [i32] * 3
+                                   + [ptr])
+        lib.fluid_scan.restype = i32
+        lib.fluid_error_string.argtypes = [i32]
+        lib.fluid_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of the CUDA kernel since the library was loaded, as the C
+    function counts them where a launch succeeds."""
+    return _build.launch_counts(load(), "fluid")
+
+
+def check_inputs(jobs: torch.Tensor, order: torch.Tensor, scalars: torch.Tensor,
+                 n_steps: int) -> None:
+    """Raise on anything the kernel does not take (the device is the
+    caller's to check)."""
+    if jobs.ndim != 3 or order.ndim != 2 or scalars.ndim != 2:
+        raise ValueError("expected jobs [C, 10, Jp], order [C, Jp], scalars [C, 11]")
+    C, F, Jp = jobs.shape
+    if F != len(JOB_FIELDS) or tuple(order.shape) != (C, Jp) \
+            or tuple(scalars.shape) != (C, len(SCALAR_FIELDS)):
+        raise ValueError(f"shapes disagree: jobs {tuple(jobs.shape)}, order "
+                         f"{tuple(order.shape)}, scalars {tuple(scalars.shape)}")
+    if jobs.dtype != torch.float32 or scalars.dtype != torch.float32:
+        raise ValueError("jobs and scalars must be float32")
+    if order.dtype != torch.int32:
+        raise ValueError("order must be int32")
+    if C < 1 or Jp < MIN_JOBS or Jp > MAX_JOBS or Jp & (Jp - 1):
+        raise ValueError(f"unsupported sizes C={C} Jp={Jp}: the padded jobs must "
+                         f"be a power of two from {MIN_JOBS} to {MAX_JOBS}")
+    if n_steps < 1:
+        raise ValueError(f"n_steps must be positive, got {n_steps}")
+    if not (jobs.device == order.device == scalars.device):
+        raise ValueError("jobs, order and scalars must be on one device")
+    if not (jobs.is_contiguous() and order.is_contiguous() and scalars.is_contiguous()):
+        raise ValueError("jobs, order and scalars must be contiguous")
+
+
+def fluid_scan_cuda(
+    jobs: torch.Tensor,        # [C, 10, Jp] float32
+    order: torch.Tensor,       # [C, Jp] int32
+    scalars: torch.Tensor,     # [C, 11] float32
+    phys: FluidPhysics,
+    *,
+    n_steps: int,
+    diag: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Launch the kernel on CUDA tensors; the outputs of
+    ``ref.fluid_scan_ref``.  Raises on anything it does not take."""
+    check_inputs(jobs, order, scalars, n_steps)
+    if not jobs.is_cuda:
+        raise ValueError(f"tensors must be CUDA tensors, got {jobs.device}")
+    C, _, Jp = jobs.shape
+    dev = jobs.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {k: torch.empty((C, Jp), **f32)
+           for k in ("finish", "local", "remote", "map_rem", "red_rem")}
+    out["latched_steps"] = torch.empty(C, **f32)
+    out["steps"] = torch.empty(C, dtype=torch.int32, device=dev)
+    trajectory = torch.empty((C, n_steps, len(DIAG_FIELDS)), **f32) if diag else None
+    rings = torch.empty((C, 4, RING, Jp), **f32) if Jp > SMEM_RING_JOBS else None
+    physics = (ctypes.c_float * 14)(*[float(x) for x in phys[:14]])
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fluid_scan(
+            jobs.data_ptr(), order.data_ptr(), scalars.data_ptr(), physics,
+            int(phys.fair_iters), out["finish"].data_ptr(), out["local"].data_ptr(),
+            out["remote"].data_ptr(), out["map_rem"].data_ptr(),
+            out["red_rem"].data_ptr(), out["latched_steps"].data_ptr(),
+            out["steps"].data_ptr(),
+            None if trajectory is None else trajectory.data_ptr(),
+            None if rings is None else rings.data_ptr(), C, Jp, n_steps, stream)
+    if err != 0:
+        raise RuntimeError(f"fluid_scan launch failed: CUDA error {err} "
+                           f"({lib.fluid_error_string(err).decode()})")
+    if diag:
+        out["diag"] = trajectory
+    return out
