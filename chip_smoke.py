@@ -28,9 +28,11 @@ the dense paths (fp32, and bf16 for the gradients), checks the results, and
 saves and restores tinyllama-1.1b's full training state (the step after it
 bit for bit).  The paper's batched fluid surrogate runs on the card too: the
 1000-cell grid of benchmarks/bench_surrogate.py through the port's
-`experiments.surrogate.run_surrogate` on the fluid-scan kernel, which is held
-against its plain version over the calibration cells and a bucket larger
-than its block, with the determinism contract checked on the card.
+`experiments.surrogate.run_surrogate` on the fluid scan's warp variant; both
+of its CUDA variants are held bit for bit against its plain version over the
+calibration cells, a sub-batch of the grid and one cell's diagnostics, the
+block variant also over a bucket larger than the warp variant takes, the
+determinism contract is checked on the card, and the two are timed in turns.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device it prints no result and exits with code 1.
@@ -271,8 +273,8 @@ SUR_POLICIES = ("proposed", "fair", "fifo", "delay", "edf_nopark")
 SUR_GRID_SEEDS = 200
 SUR_BIG = dict(num_jobs=1500, rate_per_hour=7200.0)
 SUR_SUBBATCH = 64          # the original's sub-batch: the plain version's timing
+SUR_TIMING_ITERS = 5       # launches a reading, both variants in turns
 SUR_LOCALITY_TOL = 1e-6
-SUR_DIAG_RTOL = 1e-5       # of each aggregate's largest value over the run
 # fp32 operations of one integrated step a padded job, counted for the bound:
 # the four rings' sums over 64 columns (63 adds each) and some 80 elementwise
 # operations; the allocators' rounds, which depend on the data, are left out,
@@ -1957,6 +1959,27 @@ def patched(module, name: str, fn):
         setattr(module, name, saved)
 
 
+def forced_fluid_scan(name: str):
+    """The fluid scan as `fluid_ops.fluid_scan` is called, on the CUDA
+    variant `name` whatever the rule picks (raises where it does not take
+    the bucket)."""
+    from repro_torch.kernels.fluid_scan import kernel as fluid
+
+    def scan(jobs, order, scalars, phys, *, n_steps, diag=False):
+        return fluid.fluid_scan_cuda(jobs, order, scalars, phys, n_steps=n_steps,
+                                     diag=diag, variant=name)
+    return scan
+
+
+def sur_bit_equal(name: str, compared: dict) -> dict:
+    """`compared` (sur_compare's) when every cell is bit-equal; raises
+    otherwise."""
+    if compared["cells_bit_equal"] != compared["cells"]:
+        raise AssertionError(f"{name}: {compared['cells_bit_equal']} of "
+                             f"{compared['cells']} cells bit-equal to the plain version")
+    return compared
+
+
 def sur_compare(k3_results, plain_results) -> dict:
     """K3 against the plain version, cell by cell: every finish time equal,
     the locality rate within SUR_LOCALITY_TOL; the largest difference of a
@@ -1994,12 +2017,16 @@ def phase_surrogate() -> dict:
     """The paper's batched fluid surrogate on the card (K3): the bench grid of
     1000 cells through `experiments.surrogate.run_surrogate` into a temporary
     cache, timed by parts (the host's trace and cell build, the integration,
-    K3 by CUDA events); K3 against its plain version on the card over the
-    calibration cells (each preset's allowlisted policies and fair, seeds
-    0-3, the gains over fair printed), one cell's diagnostics and the
-    oversized bucket; the determinism contract on the card (a second run
-    byte-equal, the reversed batch and max_batch 1 equal cell by cell); the
-    plain version's time on one 64-cell sub-batch of the grid beside K3's."""
+    K3 by CUDA events), on the rule's variant `fluid_scan_warp` by the C
+    count; both CUDA variants bit-equal to the plain version on the card over
+    one 64-cell sub-batch of the grid, the calibration cells (each preset's
+    allowlisted policies and fair, seeds 0-3, the gains over fair printed)
+    and one cell's diagnostics, and `fluid_scan_block` over the oversized
+    bucket, which the rule gives it; the determinism contract on
+    `fluid_scan_warp` (a second run byte-equal, the reversed batch and
+    max_batch 1 equal cell by cell); both variants timed in turns at the
+    grid's launch, the sub-batch and a calibration bucket of 64 jobs, each
+    beside its bound and the plain version's time."""
     import dataclasses
 
     from repro_torch.core.types import ClusterSpec
@@ -2056,7 +2083,10 @@ def phase_surrogate() -> dict:
             scan.launches = 0
             before = fluid.launch_counts()
             t0 = time.perf_counter()
-            report = texp.run_surrogate(grid, Path(d) / "grid", device="cuda")
+            # the grid's one bucket is the first cell's: the rule's variant
+            report, grid_variant, _ = launched_variant(
+                lambda: texp.run_surrogate(grid, Path(d) / "grid", device="cuda"),
+                fluid, fluid.variant(warm.padded_jobs()))
             total_s = time.perf_counter() - t0
             launches = scan.launches
             c_launches = {k: n - before[k] for k, n in fluid.launch_counts().items()}
@@ -2075,15 +2105,17 @@ def phase_surrogate() -> dict:
             raise AssertionError(f"a grid cell is wrong: {r.scheduler} seed {r.seed}: "
                                  f"{r.jobs_finished}/{r.jobs_total} jobs, makespan "
                                  f"{r.makespan}, locality {r.locality_rate}")
-    if launches < 1 or c_launches.get("fluid_scan_kernel") != launches:
-        raise AssertionError(f"the grid ran K3 {launches} times (C counted {c_launches})")
     buckets = sorted({(c.padded_jobs(), c.n_steps()) for c in cells})
     steps = [r.steps_integrated for r in results]
     (jp, n_steps), = buckets
+    if grid_variant != "fluid_scan_warp" or launches != 1 \
+            or c_launches.get("fluid_scan_warp") != launches:
+        raise AssertionError(f"the grid ran K3 {launches} times on {grid_variant} "
+                             f"(C counted {c_launches})")
     grid_bound, grid_bound_by = fluid_bound_ms(len(cells), jp, sum(steps) / len(steps))
     grid_out = {
         "cells": len(cells), "buckets": buckets, "launches": launches,
-        "cuda_kernel_launches": c_launches,
+        "cuda_kernel_launches": c_launches, "variant": grid_variant,
         "host_build_s": host["build_s"], "integrate_s": host["integrate_s"],
         "run_surrogate_s": total_s,
         "cells_per_s": len(cells) / total_s,
@@ -2095,20 +2127,24 @@ def phase_surrogate() -> dict:
         "bound_ms": grid_bound, "bound_by": grid_bound_by,
         "jobs_finished": sum(r.jobs_finished for r in records)}
 
-    # -- 2. K3 against the plain version: one 64-cell sub-batch of the grid,
-    # timed; the calibration cells through run_surrogate; one diagnostics run;
-    # the oversized bucket
+    # -- 2. both variants against the plain version, cell by cell, bit for
+    # bit: one 64-cell sub-batch of the grid; the calibration cells through
+    # run_surrogate; one diagnostics run; then the oversized bucket, the
+    # block variant's by the rule
+    dev = torch.device("cuda")
+    block_scan = forced_fluid_scan("fluid_scan_block")
     sub = cells[:SUR_SUBBATCH]
-    jobs, order, scalars = tsur._stack(sub, torch.device("cuda"))
-    k3_ms = time_ms(lambda: scan(jobs, order, scalars, tsur.PHYSICS, n_steps=n_steps), 5)
-    plain_ms = time_ms(lambda: plain_fluid_scan(jobs, order, scalars, tsur.PHYSICS,
-                                                n_steps=n_steps), 1, warmup=1)
     with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
         plain_sub = tsur.run_batch(sub, device="cuda")
-    checks = {"grid_subbatch": sur_compare(results[:SUR_SUBBATCH], plain_sub)}
-    sub_bound, sub_bound_by = fluid_bound_ms(len(sub), jp, sum(steps[:SUR_SUBBATCH]) / len(sub))
+    with patched(fluid_ops, "fluid_scan", block_scan):
+        block_sub = tsur.run_batch(sub, device="cuda")
+    checks = {"grid_subbatch": {
+        "fluid_scan_warp": sur_bit_equal("the grid's sub-batch on fluid_scan_warp",
+                                         sur_compare(results[:SUR_SUBBATCH], plain_sub)),
+        "fluid_scan_block": sur_bit_equal("the grid's sub-batch on fluid_scan_block",
+                                          sur_compare(block_sub, plain_sub))}}
 
-    gains, cal_k3, cal_plain = {}, [], []
+    gains, cal_k3 = {}, []
     with tempfile.TemporaryDirectory(prefix="surrogate-", dir=ROOT / "build") as d:
         for (preset, shape), allow in sorted(texp.CALIBRATED.items()):
             machines, vms = (int(x) for x in shape.split("x"))
@@ -2132,38 +2168,49 @@ def phase_surrogate() -> dict:
             for rec in k3_rep.records:
                 trace = TraceRef(config=PRESETS[preset]).resolve(rec.seed)
                 cal_k3.append(tsur.build_cell(trace, spec.clusters[0], rec.policy, rec.seed))
-    # K3 against the plain version over the calibration cells, and the
-    # contract there: the batch reversed, one cell a launch, equal cell by cell
+    # both variants against the plain version over the calibration cells, and
+    # the contract there on the rule's variant: the batch reversed, one cell
+    # a launch, equal cell by cell
+    before = fluid.launch_counts()
     base = tsur.run_batch(cal_k3, device="cuda")
-    with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
-        cal_plain = tsur.run_batch(cal_k3, device="cuda")
-    checks["calibration"] = sur_compare(base, cal_plain)
     reversed_ = tsur.run_batch(cal_k3[::-1], device="cuda")[::-1]
     one_by_one = tsur.run_batch(cal_k3, device="cuda", max_batch=1)
     grid_again = tsur.run_batch(cells, device="cuda")
+    contract_kernels = {k: n - before[k] for k, n in fluid.launch_counts().items()
+                        if n != before[k]}
+    with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
+        cal_plain = tsur.run_batch(cal_k3, device="cuda")
+    with patched(fluid_ops, "fluid_scan", block_scan):
+        cal_block = tsur.run_batch(cal_k3, device="cuda")
+    checks["calibration"] = {
+        "fluid_scan_warp": sur_bit_equal("the calibration cells on fluid_scan_warp",
+                                         sur_compare(base, cal_plain)),
+        "fluid_scan_block": sur_bit_equal("the calibration cells on fluid_scan_block",
+                                          sur_compare(cal_block, cal_plain))}
     contract = {
         "reversed_equal": [sur_fingerprint(r) for r in reversed_] == [sur_fingerprint(r) for r in base],
         "max_batch_1_equal": [sur_fingerprint(r) for r in one_by_one] == [sur_fingerprint(r) for r in base],
         "grid_second_run_equal": [sur_fingerprint(r) for r in grid_again] == [sur_fingerprint(r) for r in results],
-        "calibration_second_run_byte_equal": True}
+        "calibration_second_run_byte_equal": True,
+        "on_fluid_scan_warp_alone": set(contract_kernels) == {"fluid_scan_warp"}}
     if not all(contract.values()):
-        raise AssertionError(f"the determinism contract fails on the card: {contract}")
-    # one cell's diagnostics over the whole horizon
+        raise AssertionError(f"the determinism contract fails on the card: {contract} "
+                             f"(CUDA kernels {contract_kernels})")
+    contract["cuda_kernel_launches"] = contract_kernels
+    # one cell's diagnostics over the whole horizon, every aggregate equal
     cell = cal_k3[0]
-    dk = tsur.run_cell(cell, diag=True, device="cuda")
     with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
         dp = tsur.run_cell(cell, diag=True, device="cuda")
-    diag_err = {}
-    for k in dk.diag:
-        a, b = dp.diag[k], dk.diag[k]
-        if k == "lf":
-            a, b = a * dp.diag["launched_m"], b * dk.diag["launched_m"]
-        diag_err[k] = float(np.abs(a - b).max())
-        if diag_err[k] > SUR_DIAG_RTOL * max(float(np.abs(a).max()), 1.0):
-            raise AssertionError(f"diag {k}: K3 and the plain version differ by {diag_err[k]}")
-    checks["diag"] = {"steps": dk.steps_integrated, "diag_max_abs_err": diag_err,
-                      **sur_compare([dk], [dp])}
-    # the oversized bucket: more padded jobs than the kernel's block has threads
+    checks["diag"] = {}
+    for name, runner in (("fluid_scan_warp", fluid_ops.fluid_scan), ("fluid_scan_block", block_scan)):
+        with patched(fluid_ops, "fluid_scan", runner):
+            dk = tsur.run_cell(cell, diag=True, device="cuda")
+        differ = [k for k in dk.diag if not np.array_equal(dk.diag[k], dp.diag[k])]
+        if differ:
+            raise AssertionError(f"diag on {name}: {differ} differ from the plain version")
+        checks["diag"][name] = {"steps": dk.steps_integrated, "aggregates_bit_equal": len(dk.diag),
+                                **sur_bit_equal(f"the diag cell on {name}", sur_compare([dk], [dp]))}
+    # the oversized bucket: more padded jobs than the warp variant takes
     cfg = PRESETS["mix"]
     big_cfg = dataclasses.replace(cfg, name="mix_big", num_jobs=SUR_BIG["num_jobs"],
                                   arrival=dataclasses.replace(
@@ -2173,19 +2220,47 @@ def phase_surrogate() -> dict:
     big = [tsur.build_cell(big_trace, big_cluster, pol, 0) for pol in ("proposed", "fair")]
     if big[0].padded_jobs() <= 256:
         raise AssertionError(f"the oversized bucket has {big[0].padded_jobs()} jobs")
-    big_k3 = tsur.run_batch(big, device="cuda")
+    big_k3, big_variant, _ = launched_variant(lambda: tsur.run_batch(big, device="cuda"),
+                                              fluid, fluid.variant(big[0].padded_jobs()))
+    if big_variant != "fluid_scan_block":
+        raise AssertionError(f"the oversized bucket ran {big_variant}")
     with patched(fluid_ops, "fluid_scan", plain_fluid_scan):
         big_plain = tsur.run_batch(big, device="cuda")
-    checks["oversized"] = {"bucket": [big[0].padded_jobs(), big[0].n_steps()],
-                           "jobs": big[0].n_jobs,
-                           "steps": [r.steps_integrated for r in big_k3],
-                           **sur_compare(big_k3, big_plain)}
-    max_err = max(c["max_abs_err"] for c in checks.values())
+    checks["oversized"] = {
+        "fluid_scan_block": {"bucket": [big[0].padded_jobs(), big[0].n_steps()],
+                             "jobs": big[0].n_jobs,
+                             "steps": [r.steps_integrated for r in big_k3],
+                             **sur_bit_equal("the oversized bucket on fluid_scan_block",
+                                             sur_compare(big_k3, big_plain))}}
+    max_err = max(c["max_abs_err"] for place in checks.values() for c in place.values())
+
+    # -- 3. both variants timed in turns, each beside its bound and the plain
+    # version's time: the grid's launch, the sub-batch, and the first
+    # calibration bucket of 64 jobs; the rule's variant must be the faster
+    cal_64 = sorted({(c.padded_jobs(), c.n_steps()) for c in cal_k3 if c.padded_jobs() == 64})[0]
+    timings = {}
+    for place, (cs, ns) in (("grid", (cells, n_steps)), ("subbatch", (sub, n_steps)),
+                            ("calibration_64", ([c for c in cal_k3 if (c.padded_jobs(),
+                                                 c.n_steps()) == cal_64], cal_64[1]))):
+        args = tsur._stack(cs, dev)
+        cjp = cs[0].padded_jobs()
+        st = fluid.fluid_scan_cuda(*args, tsur.PHYSICS, n_steps=ns)["steps"]
+        ms, in_order = in_turns(
+            [(v, lambda v=v: fluid.fluid_scan_cuda(*args, tsur.PHYSICS, n_steps=ns, variant=v))
+             for v in ("fluid_scan_warp", "fluid_scan_block")], SUR_TIMING_ITERS)
+        bound, bound_by = fluid_bound_ms(len(cs), cjp, float(st.float().mean()))
+        rule = fluid.variant(cjp)
+        timings[place] = {
+            "cells": len(cs), "bucket": [cjp, ns], "variant": rule,
+            "steps_integrated": [int(st.min()), int(st.max())],
+            "ms": {v: min(x) for v, x in ms.items()}, "ms_in_turns": in_order,
+            "plain_ms": time_ms(lambda: plain_fluid_scan(*args, tsur.PHYSICS, n_steps=ns), 1,
+                                warmup=0),
+            "bound_ms": bound, "bound_by": bound_by}
+        if min(ms[rule]) > min(min(x) for x in ms.values()):
+            raise AssertionError(f"{place}: the rule's {rule} is not the faster: {ms}")
     result = {"grid": grid_out, "gains_over_fair_pct": gains, "k3_vs_plain": checks,
-              "contract": contract,
-              "subbatch": {"cells": len(sub), "bucket": [jp, n_steps], "kernel_ms": k3_ms,
-                           "plain_ms": plain_ms, "bound_ms": sub_bound,
-                           "bound_by": sub_bound_by},
+              "contract": contract, "timings": timings,
               "max_abs_err": max_err,
               "seconds": time.perf_counter() - t_phase}
     emit("surrogate", **result)
@@ -2339,24 +2414,37 @@ def main() -> int:
             rows[-1]["later_families"]["mixtral-8x22b window"]["launches"] = \
                 window["launches_by_kernel"]["flash_attention_fwd"]
     # the fluid surrogate's scan (jnp in the JAX package, a kernel here):
-    # launches on the bench grid, ms / plain_ms / bound_ms on one 64-cell
-    # sub-batch of it, and the grid's own launch beside its bound
+    # launches on the bench grid (the rule's variant, fluid_scan_warp, by the
+    # C count); ms / plain_ms / bound_ms on one 64-cell sub-batch of it, with
+    # fluid_scan_block in turns as the earlier variant; the grid's launch and
+    # a calibration bucket of 64 jobs alike
     from repro_torch.kernels.fluid_scan import kernel as fluid
-    g, s = sur["grid"], sur["subbatch"]
+    g, t = sur["grid"], sur["timings"]
+
+    def timed(place):
+        x = t[place]
+        return {"cells": x["cells"], "bucket": x["bucket"], "variant": x["variant"],
+                "ms": x["ms"][x["variant"]], "earlier_variant": "fluid_scan_block",
+                "earlier_ms": x["ms"]["fluid_scan_block"], "plain_ms": x["plain_ms"],
+                "bound_ms": x["bound_ms"], "bound_by": x["bound_by"]}
+
+    s = timed("subbatch")
     rows.append({
         "name": "fluid_scan", "route": "cuda",
         "source": str(fluid.SOURCE.relative_to(ROOT)),
         "replaces": "src/repro/simcluster/surrogate.py:405",
         "launches": g["launches"], "max_abs_err": sur["max_abs_err"],
-        "ms": s["kernel_ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
         "bound_by": s["bound_by"], "library_ms": None,
-        "variant": "fluid_scan_kernel", "cuda_kernels_per_call": 1,
+        "variant": g["variant"],
+        "cuda_kernels_per_call": g["cuda_kernel_launches"][g["variant"]] // g["launches"],
+        "earlier_variant": s["earlier_variant"], "earlier_ms": s["earlier_ms"],
         "shape": {"cells": s["cells"], "padded_jobs": s["bucket"][0],
                   "horizon_steps": s["bucket"][1]},
-        "grid": {"cells": g["cells"], "ms": g["kernel_ms"], "bound_ms": g["bound_ms"],
-                 "bound_by": g["bound_by"], "launches": g["launches"],
-                 "steps_integrated": g["steps_integrated_max"],
-                 "us_per_integrated_step": g["us_per_integrated_step"]}})
+        "grid": {**timed("grid"), "ms_in_run_surrogate": g["kernel_ms"],
+                 "launches": g["launches"], "steps_integrated": g["steps_integrated_max"],
+                 "us_per_integrated_step": g["us_per_integrated_step"]},
+        "calibration_64": timed("calibration_64")})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,14 @@
 The source ``csrc/fluid_scan.cu`` is compiled at first use by
 ``repro_torch.kernels._build`` (``nvcc`` into ``build/``, without fused
 multiply-adds, loaded with ``ctypes``).  One launch integrates every cell of
-one (jobs, steps) bucket, one block a cell for the whole horizon.  The four
-rings live in shared memory up to 128 padded jobs and in a global scratch
-buffer that this wrapper allocates above that.
+one (jobs, steps) bucket, each cell for the whole horizon, by one of two
+CUDA kernels that ``variant`` picks from the padded jobs alone:
+``fluid_scan_warp`` (up to 128 padded jobs: one warp a cell, every sum by
+shuffles, no block barrier in a step) or ``fluid_scan_block`` (above: one
+block a cell, a thread a job, sums through shared memory).  The four rings
+live in shared memory up to 128 padded jobs and in a global scratch buffer
+that this wrapper allocates above that.  A caller may name either variant
+(``variant=``) where it takes the bucket, to time one against the other.
 """
 from __future__ import annotations
 
@@ -24,6 +29,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "fluid_scan.cu"
 MIN_JOBS, MAX_JOBS = 8, 2048
 #: above this bucket the rings live in global scratch, not shared memory
 SMEM_RING_JOBS = 128
+#: the largest bucket of the warp variant (its rings in shared memory)
+WARP_MAX_JOBS = 128
+#: the variants, by the code the C function takes (FluidVariant in the source)
+VARIANT_CODES = {"fluid_scan_block": 0, "fluid_scan_warp": 1}
+#: the CUDA kernels one call launches, by variant
+VARIANT_KERNELS = {"fluid_scan_block": ("fluid_scan_block",),
+                   "fluid_scan_warp": ("fluid_scan_warp",)}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -33,25 +45,59 @@ def build(verbose: bool = False) -> Path:
     return _build.build(SOURCE, verbose)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of the source) with its C functions' argument types."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fluid_scan.argtypes = [ptr] * 4 + [i32] + [ptr] * 9 + [i32] * 4 + [ptr]
+    lib.fluid_scan.restype = i32
+    lib.fluid_error_string.argtypes = [i32]
+    lib.fluid_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded library, built first if need be."""
     global _lib
     if _lib is None:
-        lib = _build.load(SOURCE)
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fluid_scan.argtypes = ([ptr] * 4 + [i32] + [ptr] * 9 + [i32] * 3
-                                   + [ptr])
-        lib.fluid_scan.restype = i32
-        lib.fluid_error_string.argtypes = [i32]
-        lib.fluid_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(_build.load(SOURCE))
     return _lib
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of the CUDA kernel since the library was loaded, as the C
-    function counts them where a launch succeeds."""
+    """Launches of each CUDA kernel since the library was loaded, as the C
+    function counts them where a launch succeeds: which kernel a call really
+    ran is the difference of two readings."""
     return _build.launch_counts(load(), "fluid")
+
+
+def takes(padded_jobs: int) -> bool:
+    """Whether the kernel takes this bucket: a power of two in
+    [MIN_JOBS, MAX_JOBS]."""
+    return (MIN_JOBS <= padded_jobs <= MAX_JOBS
+            and padded_jobs & (padded_jobs - 1) == 0)
+
+
+def variant(padded_jobs: int) -> str:
+    """The CUDA kernel that runs for this bucket: ``fluid_scan_warp`` up to
+    ``WARP_MAX_JOBS`` padded jobs, ``fluid_scan_block`` above."""
+    if not takes(padded_jobs):
+        raise ValueError(f"no kernel for {padded_jobs} padded jobs: a power of "
+                         f"two from {MIN_JOBS} to {MAX_JOBS}")
+    return "fluid_scan_warp" if padded_jobs <= WARP_MAX_JOBS else "fluid_scan_block"
+
+
+def _chosen(name: Optional[str], padded_jobs: int) -> str:
+    """``name``, or the rule's choice where it is None; raises where the named
+    variant does not take the bucket (the block variant takes every bucket,
+    the warp variant those up to ``WARP_MAX_JOBS``)."""
+    rule = variant(padded_jobs)
+    if name is None:
+        return rule
+    if name not in VARIANT_CODES or (name == "fluid_scan_warp"
+                                     and padded_jobs > WARP_MAX_JOBS):
+        raise ValueError(f"variant {name!r} has no kernel for {padded_jobs} "
+                         f"padded jobs")
+    return name
 
 
 def check_inputs(jobs: torch.Tensor, order: torch.Tensor, scalars: torch.Tensor,
@@ -69,7 +115,7 @@ def check_inputs(jobs: torch.Tensor, order: torch.Tensor, scalars: torch.Tensor,
         raise ValueError("jobs and scalars must be float32")
     if order.dtype != torch.int32:
         raise ValueError("order must be int32")
-    if C < 1 or Jp < MIN_JOBS or Jp > MAX_JOBS or Jp & (Jp - 1):
+    if C < 1 or not takes(Jp):
         raise ValueError(f"unsupported sizes C={C} Jp={Jp}: the padded jobs must "
                          f"be a power of two from {MIN_JOBS} to {MAX_JOBS}")
     if n_steps < 1:
@@ -88,13 +134,16 @@ def fluid_scan_cuda(
     *,
     n_steps: int,
     diag: bool = False,
+    variant: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Launch the kernel on CUDA tensors; the outputs of
-    ``ref.fluid_scan_ref``.  Raises on anything it does not take."""
+    ``ref.fluid_scan_ref``.  ``variant`` names the CUDA kernel (the rule's,
+    ``variant(Jp)``, where None).  Raises on anything it does not take."""
     check_inputs(jobs, order, scalars, n_steps)
+    C, _, Jp = jobs.shape
+    kind = _chosen(variant, Jp)
     if not jobs.is_cuda:
         raise ValueError(f"tensors must be CUDA tensors, got {jobs.device}")
-    C, _, Jp = jobs.shape
     dev = jobs.device
     f32 = dict(dtype=torch.float32, device=dev)
     out = {k: torch.empty((C, Jp), **f32)
@@ -114,7 +163,8 @@ def fluid_scan_cuda(
             out["red_rem"].data_ptr(), out["latched_steps"].data_ptr(),
             out["steps"].data_ptr(),
             None if trajectory is None else trajectory.data_ptr(),
-            None if rings is None else rings.data_ptr(), C, Jp, n_steps, stream)
+            None if rings is None else rings.data_ptr(), C, Jp, n_steps,
+            VARIANT_CODES[kind], stream)
     if err != 0:
         raise RuntimeError(f"fluid_scan launch failed: CUDA error {err} "
                            f"({lib.fluid_error_string(err).decode()})")

@@ -428,7 +428,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               REPO / "scripts" / "profile_torch_serve.py",
               REPO / "scripts" / "train_lr_sweep.py",
               REPO / "scripts" / "flash_bwd_ablation.py",
-              REPO / "scripts" / "bench_torch_surrogate.py"]
+              REPO / "scripts" / "bench_torch_surrogate.py",
+              REPO / "scripts" / "fluid_scan_ablation.py"]
     assert len(files) > 25
     scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
                for p in files if "repro_torch" in p.parts}
