@@ -33,6 +33,12 @@ of its CUDA variants are held bit for bit against its plain version over the
 calibration cells, a sub-batch of the grid and one cell's diagnostics, the
 block variant also over a bucket larger than the warp variant takes, the
 determinism contract is checked on the card, and the two are timed in turns.
+Its calibration runs on the port alone: `experiments.surrogate.calibrate` on
+every calibrated (preset, shape) pair, the port's event engine on the host
+as the oracle and the fluid scan on the card, must put every allowlisted
+policy's gain inside the oracle's CI, and is served from its cache the
+second time; the `surrogate` verb runs as a user runs it; and one cell at
+20 and 100 machines is timed through both engines.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device it prints no result and exits with code 1.
@@ -275,6 +281,11 @@ SUR_BIG = dict(num_jobs=1500, rate_per_hour=7200.0)
 SUR_SUBBATCH = 64          # the original's sub-batch: the plain version's timing
 SUR_TIMING_ITERS = 5       # launches a reading, both variants in turns
 SUR_LOCALITY_TOL = 1e-6
+# the calibration phase: the surrogate verb as a user runs it, and the shapes
+# of the one heavy_tail cell timed through both engines
+CAL_VERB = ("surrogate", "--shape", "20x2", "--seeds", "0:8")
+CAL_VERB_TIMEOUT_S = 300
+CAL_HOST_SHAPES = ("20x2", "100x2")
 # fp32 operations of one integrated step a padded job, counted for the bound:
 # the four rings' sums over 64 columns (63 adds each) and some 80 elementwise
 # operations; the allocators' rounds, which depend on the data, are left out,
@@ -2013,6 +2024,19 @@ def fluid_bound_ms(cells: int, jp: int, steps: int) -> tuple:
     return max(by_bytes, by_ops) * 1e3, ("bytes" if by_bytes > by_ops else "operations")
 
 
+def calibration_spec(preset: str, shape: str, allow: tuple):
+    """The calibration cells of one `CALIBRATED` pair, as the port's
+    `calibrate` builds them: `regime_spec`'s trace and fleet, the allowlisted
+    policies and fair, the calibration seeds."""
+    from repro_torch.experiments import surrogate as texp
+    from repro_torch.experiments.regimes import regime_spec
+    from repro_torch.experiments.runner import ExperimentSpec
+    base = regime_spec(preset, shape, seeds=texp.CALIBRATION_SEEDS)
+    return ExperimentSpec(name=f"cal-{preset}-{shape}", traces=base.traces,
+                          clusters=base.clusters, schedulers=allow + ("fair",),
+                          seeds=texp.CALIBRATION_SEEDS)
+
+
 def phase_surrogate() -> dict:
     """The paper's batched fluid surrogate on the card (K3): the bench grid of
     1000 cells through `experiments.surrogate.run_surrogate` into a temporary
@@ -2147,12 +2171,7 @@ def phase_surrogate() -> dict:
     gains, cal_k3 = {}, []
     with tempfile.TemporaryDirectory(prefix="surrogate-", dir=ROOT / "build") as d:
         for (preset, shape), allow in sorted(texp.CALIBRATED.items()):
-            machines, vms = (int(x) for x in shape.split("x"))
-            spec = ExperimentSpec(
-                name=f"cal-{preset}-{shape}", traces=(TraceRef(config=PRESETS[preset]),),
-                clusters=(ClusterSpec(num_machines=machines, vms_per_machine=vms,
-                                      replication=1),),
-                schedulers=allow + ("fair",), seeds=texp.CALIBRATION_SEEDS)
+            spec = calibration_spec(preset, shape, allow)
             k3_rep = texp.run_surrogate(spec, Path(d) / "k3", device="cuda")
             again = texp.run_surrogate(spec, Path(d) / "again", device="cuda")
 
@@ -2166,7 +2185,7 @@ def phase_surrogate() -> dict:
             gains[f"{preset}/{shape}"] = {
                 pol: compare_throughput(by["fair"], by[pol]).mean_gain_pct for pol in allow}
             for rec in k3_rep.records:
-                trace = TraceRef(config=PRESETS[preset]).resolve(rec.seed)
+                trace = spec.traces[0].resolve(rec.seed)
                 cal_k3.append(tsur.build_cell(trace, spec.clusters[0], rec.policy, rec.seed))
     # both variants against the plain version over the calibration cells, and
     # the contract there on the rule's variant: the batch reversed, one cell
@@ -2267,6 +2286,171 @@ def phase_surrogate() -> dict:
     return result
 
 
+def phase_calibration() -> dict:
+    """The surrogate's calibration wall on the port alone: for every
+    `CALIBRATED` pair, `experiments.surrogate.calibrate(..., device="cuda")`
+    runs the port's event engine on the host as the oracle (inline, no
+    worker pool) and the fluid surrogate with K3 on the card; every pair
+    must be `wall_green`.  K3's launches are counted from 0 over the
+    calibrations (the buckets of 64 and 128 padded jobs, on
+    `fluid_scan_warp` by the C count).  A second run into the same cache
+    simulates and integrates nothing and gives the same records, byte for
+    byte.  Then the `surrogate` verb as a user runs it, in a subprocess
+    (it must exit 0; its output is printed), and what the surrogate buys:
+    one heavy_tail cell at 20x2 and at 100x2, seed 0, under proposed and
+    fair, through the event engine on the host and `run_surrogate` on the
+    card, each timed (printed, not gated: 100x2 is not calibrated)."""
+    import dataclasses
+
+    from repro_torch.experiments import surrogate as texp
+    from repro_torch.experiments.regimes import regime_spec
+    from repro_torch.experiments.runner import ExperimentSpec, run_experiment
+    from repro_torch.kernels.fluid_scan import kernel as fluid
+    from repro_torch.kernels.fluid_scan import ops as fluid_ops
+    from repro_torch.simcluster.traces import _dumps
+
+    t_phase = time.perf_counter()
+    spent = {"oracle": 0.0, "surrogate": 0.0}
+    reports, buckets = [], set()
+    oracle_fn, surrogate_fn, run_batch = texp.run_experiment, texp.run_surrogate, texp.run_batch
+
+    def timed(engine, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[engine] += time.perf_counter() - t0
+            reports.append((engine, out))
+            return out
+        return run
+
+    def bucketed(cells, **kwargs):
+        buckets.update((c.padded_jobs(), c.n_steps()) for c in cells)
+        return run_batch(cells, **kwargs)
+
+    def dumped(rep):
+        return [_dumps({k: v for k, v in r.to_dict().items() if k != "wall_time_s"})
+                for r in rep.records]
+
+    pairs = {}
+    with tempfile.TemporaryDirectory(prefix="calibration-", dir=ROOT / "build") as d, \
+            patched(texp, "run_experiment", timed("oracle", oracle_fn)), \
+            patched(texp, "run_surrogate", timed("surrogate", surrogate_fn)), \
+            patched(texp, "run_batch", bucketed):
+        fluid_ops.fluid_scan.launches = 0
+        before = fluid.launch_counts()
+        for (preset, shape), allow in sorted(texp.CALIBRATED.items()):
+            n_cells = calibration_spec(preset, shape, allow).n_cells()
+            runs = []
+            for _ in range(2):
+                reports.clear()
+                spent.update(oracle=0.0, surrogate=0.0)
+                report = texp.calibrate(preset, shape, Path(d), device="cuda")
+                runs.append((report, dict(reports), dict(spent)))
+            (cal, first, s1), (again, second, s2) = runs
+            if not cal.wall_green:
+                raise AssertionError(f"{preset}/{shape}: calibration drift: " + ", ".join(
+                    f"{p.policy} {p.surrogate_gain_pct:+.2f}% vs "
+                    f"[{p.oracle.ci_lo_pct:+.2f}, {p.oracle.ci_hi_pct:+.2f}]"
+                    for p in cal.policies if not p.inside))
+            fresh = {e: (r.simulated, r.cached) for e, r in first.items()}
+            served = {e: (r.simulated, r.cached) for e, r in second.items()}
+            if fresh != {"oracle": (n_cells, 0), "surrogate": (n_cells, 0)} or \
+                    served != {"oracle": (0, n_cells), "surrogate": (0, n_cells)}:
+                raise AssertionError(f"{preset}/{shape}: {n_cells} cells, first run "
+                                     f"(simulated, cached) {fresh}, second {served}")
+            if any(dumped(first[e]) != dumped(second[e]) for e in first) or \
+                    [dataclasses.asdict(p) for p in cal.policies] != \
+                    [dataclasses.asdict(p) for p in again.policies]:
+                raise AssertionError(f"{preset}/{shape}: the second run from the cache "
+                                     "differs from the first")
+            pairs[f"{preset}/{shape}"] = {
+                "wall_green": cal.wall_green, "cells_per_engine": n_cells,
+                "oracle_s": s1["oracle"], "surrogate_s": s1["surrogate"],
+                "second_run_s": s2["oracle"] + s2["surrogate"],
+                "policies": {p.policy: {
+                    "surrogate_gain_pct": p.surrogate_gain_pct,
+                    "oracle_gain_pct": p.oracle.mean_gain_pct,
+                    "oracle_ci_pct": [p.oracle.ci_lo_pct, p.oracle.ci_hi_pct],
+                    "inside": p.inside} for p in cal.policies}}
+        torch.cuda.synchronize()
+        launches = fluid_ops.fluid_scan.launches
+        c_launches = {k: n - before[k] for k, n in fluid.launch_counts().items()
+                      if n != before[k]}
+    variants = sorted({fluid.variant(jp) for jp, _ in buckets})
+    if launches == 0 or variants != ["fluid_scan_warp"] or \
+            c_launches != {"fluid_scan_warp": launches}:
+        raise AssertionError(f"the calibration ran K3 {launches} times on {variants} "
+                             f"(C counted {c_launches})")
+    print("calibration: the port's event engine (host) as the oracle, K3 on the card")
+    for key, p in pairs.items():
+        print(f"  {key}: oracle {p['oracle_s']:.3f} s for {p['cells_per_engine']} cells, "
+              f"surrogate {p['surrogate_s']:.3f} s, second run {p['second_run_s']:.3f} s")
+        for pol, x in p["policies"].items():
+            print(f"    {pol:11s} surrogate {x['surrogate_gain_pct']:+7.3f}% vs oracle CI "
+                  f"[{x['oracle_ci_pct'][0]:+7.3f}%, {x['oracle_ci_pct'][1]:+7.3f}%] "
+                  f"{'IN' if x['inside'] else 'OUT'}")
+
+    # the verb, as a user runs it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory(prefix="calibration-verb-", dir=ROOT / "build") as d:
+        argv = [sys.executable, "-m", "repro_torch.experiments", *CAL_VERB, "--cache", d]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, env=env, cwd=ROOT,
+                              timeout=CAL_VERB_TIMEOUT_S)
+        verb_s = time.perf_counter() - t0
+    print(f"$ python -m repro_torch.experiments {' '.join(CAL_VERB)} --cache <tmp>")
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr, file=sys.stderr, flush=True)
+        raise AssertionError(f"the surrogate verb exited with {proc.returncode}")
+    if proc.stdout.count(" IN") == 0 or " OUT" in proc.stdout:
+        raise AssertionError("the surrogate verb printed no calibration, or a drift")
+
+    # what the surrogate buys: the event engine's seconds a cell beside
+    # run_surrogate's, on the same cells
+    buys = {}
+    for shape in CAL_HOST_SHAPES:
+        base = regime_spec("heavy_tail", shape, seeds=(0,))
+        spec = ExperimentSpec(name=f"host-heavy_tail-{shape}", traces=base.traces,
+                              clusters=base.clusters, schedulers=("proposed", "fair"),
+                              seeds=(0,))
+        with tempfile.TemporaryDirectory(prefix="calibration-host-", dir=ROOT / "build") as d:
+            t0 = time.perf_counter()
+            event = run_experiment(spec, Path(d) / "event", workers=0)
+            event_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fluid_rep = texp.run_surrogate(spec, Path(d) / "fluid", device="cuda")
+            torch.cuda.synchronize()
+            fluid_s = time.perf_counter() - t0
+        ev, fl = event.by_scheduler(), fluid_rep.by_scheduler()
+        buys[shape] = {
+            "jobs": event.records[0].jobs_total,
+            "event_s_per_cell": {p: ev[p][0].wall_time_s for p in ev},
+            "event_events": {p: ev[p][0].events_processed for p in ev},
+            "event_s": event_s, "run_surrogate_s": fluid_s,
+            "run_surrogate_s_per_cell": fluid_s / len(fluid_rep.records),
+            "throughput_jph": {p: {"event": ev[p][0].throughput_jph,
+                                   "surrogate": fl[p][0].throughput_jph} for p in ev},
+            "jobs_finished": {p: [ev[p][0].jobs_finished, fl[p][0].jobs_finished]
+                              for p in ev}}
+        print(f"  heavy_tail/{shape} seed 0: event engine "
+              + ", ".join(f"{p} {s:.3f} s" for p, s in buys[shape]["event_s_per_cell"].items())
+              + f"; run_surrogate {fluid_s:.3f} s for both cells")
+    result = {"pairs": pairs, "all_wall_green": all(p["wall_green"] for p in pairs.values()),
+              "launches": launches, "cuda_kernel_launches": c_launches,
+              "buckets": sorted(buckets), "variant": variants[0],
+              "oracle_s": sum(p["oracle_s"] for p in pairs.values()),
+              "surrogate_s": sum(p["surrogate_s"] for p in pairs.values()),
+              "oracle_cells": sum(p["cells_per_engine"] for p in pairs.values()),
+              "verb": {"argv": CAL_VERB, "rc": proc.returncode, "seconds": verb_s},
+              "what_the_surrogate_buys": buys,
+              "seconds": time.perf_counter() - t_phase}
+    emit("calibration", **result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2284,6 +2468,7 @@ def main() -> int:
     phase_mapreduce()
     release()
     sur = phase_surrogate()
+    cal = phase_calibration()
     serves = {}
     for arch in SERVE_ARCHS:
         release()
@@ -2444,7 +2629,10 @@ def main() -> int:
         "grid": {**timed("grid"), "ms_in_run_surrogate": g["kernel_ms"],
                  "launches": g["launches"], "steps_integrated": g["steps_integrated_max"],
                  "us_per_integrated_step": g["us_per_integrated_step"]},
-        "calibration_64": timed("calibration_64")})
+        "calibration_64": timed("calibration_64"),
+        "launches_calibration": {
+            "launches": cal["launches"], "cuda_kernel_launches": cal["cuda_kernel_launches"],
+            "buckets": cal["buckets"], "variant": cal["variant"]}})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,44 @@
 """Core datatypes of the paper's world, as the port's own copy of the JAX
 package's ``core/types.py``: the workload profiles and job specs the traces
-replay, and the cluster shape with its adaptive, fault, serving and tracing
+replay, the cluster shape with its adaptive, fault, serving and tracing
 layers (``ClusterSpec``, whose ``to_dict`` is the cache identity of a sweep
-cell and must stay byte-equal to the original's).  Pure Python; a test holds
-it to the original.  The event engine's runtime types (``TaskId``,
-``JobRuntime``, ``SlotDemand``) are not copied: ``SlotDemand`` is in
-``repro_torch.core.estimator``, the others wait for the event engine.
+cell and must stay byte-equal to the original's), and the event engine's
+runtime types (``TaskKind``, ``TaskState``, ``TaskId``, ``JobRuntime``).
+Pure Python; a test holds it to the original.  ``SlotDemand`` and
+``ceil_at_least_one`` live in ``repro_torch.core.estimator``, which the
+training launcher imports alone.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 import functools
+import heapq
 from dataclasses import asdict, dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Set, Tuple
+
+from repro_torch.core.estimator import SlotDemand
+
+
+class TaskKind(enum.Enum):
+    MAP = "map"
+    REDUCE = "reduce"
+
+
+class TaskState(enum.Enum):
+    UNSTARTED = "unstarted"   # U^j in the paper
+    RUNNING = "running"       # R^j
+    COMPLETED = "completed"   # C^j
+
+
+@dataclass(frozen=True)
+class TaskId:
+    job_id: str
+    kind: TaskKind
+    index: int
+
+    def __str__(self) -> str:  # pragma: no cover - debug aid
+        return f"{self.job_id}/{self.kind.value}{self.index}"
 
 
 @dataclass
@@ -89,6 +115,131 @@ class JobSpec:
         d["block_placement"] = [tuple(p) for p in d["block_placement"]]
         return cls(**d)
 
+
+@dataclass
+class JobRuntime:
+    """Mutable execution state of a job as seen by a scheduler.
+
+    Tracks the paper's sets C^j (completed), R^j (running), U^j (unstarted)
+    per phase, plus the observed durations that feed Eq. (1).
+
+    The U^j sets are materialized incrementally: ``pending_map`` /
+    ``pending_reduce`` hold the not-yet-started indices, and lazy min-heaps
+    plus a per-node inverted index (``node -> pending local map ids``) answer
+    "first unstarted task" and "first data-local task on this node" in
+    amortized O(1) instead of rescanning ``range(u_m)``.  An index leaves the
+    pending sets exactly once (task start); heap entries are discarded lazily
+    on peek, so every index is popped from every heap at most once over the
+    job's lifetime.
+    """
+
+    spec: JobSpec
+    seq: int = 0                       # admission order, set by the scheduler
+    completed_map: Set[int] = field(default_factory=set)
+    running_map: Dict[int, int] = field(default_factory=dict)      # task -> node
+    completed_reduce: Set[int] = field(default_factory=set)
+    running_reduce: Dict[int, int] = field(default_factory=dict)
+    map_durations: List[float] = field(default_factory=list)
+    reduce_durations: List[float] = field(default_factory=list)
+    map_duration_sum: float = 0.0
+    reduce_duration_sum: float = 0.0
+    demand: Optional[SlotDemand] = None
+    finish_time: Optional[float] = None
+    local_map_launches: int = 0
+    remote_map_launches: int = 0
+    reconfig_map_launches: int = 0     # launched data-local via Algorithm 1
+    # flag mirrors of the map_finished / finished / started properties,
+    # maintained by SchedulerBase at state transitions so scheduler hot
+    # loops read a plain attribute instead of recomputing set sizes
+    map_done: bool = field(default=False, repr=False)
+    all_done: bool = field(default=False, repr=False)
+    has_progress: bool = field(default=False, repr=False)
+    pending_map: Set[int] = field(default_factory=set, repr=False)
+    pending_reduce: Set[int] = field(default_factory=set, repr=False)
+    _pending_map_heap: List[int] = field(default_factory=list, repr=False)
+    _pending_reduce_heap: List[int] = field(default_factory=list, repr=False)
+    _local_heaps: Dict[int, List[int]] = field(default_factory=dict, repr=False)
+
+    def __post_init__(self) -> None:
+        u, v = self.spec.u_m, self.spec.v_r
+        self.pending_map = set(range(u))
+        self.pending_reduce = set(range(v))
+        # ascending ranges are already valid heaps
+        self._pending_map_heap = list(range(u))
+        self._pending_reduce_heap = list(range(v))
+        self._local_heaps = {}
+        for i, placement in enumerate(self.spec.block_placement[:u]):
+            for node in set(placement):
+                self._local_heaps.setdefault(node, []).append(i)
+
+    # -- incremental-index queries (amortized O(1)) ----------------------
+    def first_pending_map(self) -> Optional[int]:
+        heap, pend = self._pending_map_heap, self.pending_map
+        while heap:
+            if heap[0] in pend:
+                return heap[0]
+            heapq.heappop(heap)
+        return None
+
+    def first_local_pending_map(self, node: int) -> Optional[int]:
+        heap = self._local_heaps.get(node)
+        if not heap:
+            return None
+        pend = self.pending_map
+        while heap:
+            if heap[0] in pend:
+                return heap[0]
+            heapq.heappop(heap)
+        return None
+
+    def first_pending_reduce(self) -> Optional[int]:
+        heap, pend = self._pending_reduce_heap, self.pending_reduce
+        while heap:
+            if heap[0] in pend:
+                return heap[0]
+            heapq.heappop(heap)
+        return None
+
+    def mean_map_duration(self) -> Optional[float]:
+        if not self.map_durations:
+            return None
+        return self.map_duration_sum / len(self.map_durations)
+
+    # -- paper-set views -------------------------------------------------
+    @property
+    def unstarted_map(self) -> int:
+        return self.spec.u_m - len(self.completed_map) - len(self.running_map)
+
+    @property
+    def unstarted_reduce(self) -> int:
+        return self.spec.v_r - len(self.completed_reduce) - len(self.running_reduce)
+
+    @property
+    def map_finished(self) -> bool:
+        return len(self.completed_map) == self.spec.u_m
+
+    @property
+    def finished(self) -> bool:
+        return self.map_finished and len(self.completed_reduce) == self.spec.v_r
+
+    @property
+    def started(self) -> bool:
+        """Paper Algorithm 2: jobs with no completed or running tasks get
+        precedence so the estimator can bootstrap."""
+        return bool(
+            self.completed_map
+            or self.running_map
+            or self.completed_reduce
+            or self.running_reduce
+        )
+
+    @property
+    def absolute_deadline(self) -> float:
+        return self.spec.submit_time + self.spec.deadline
+
+    def locality_rate(self) -> float:
+        launches = self.local_map_launches + self.remote_map_launches
+        return self.local_map_launches / launches if launches else 0.0
 
 
 @dataclass(frozen=True)
@@ -507,7 +658,7 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class TraceConfig:
-    """Decision-trace bus configuration (the event engine's tracing layer).
+    """Decision-trace bus configuration (``repro_torch.core.tracing``).
 
     Default **off** — with ``enabled=False`` no bus is created, every
     emission site is a single ``is None`` guard, zero RNG draws happen,

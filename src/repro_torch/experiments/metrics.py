@@ -1,12 +1,12 @@
-"""Metrics warehouse: per-job and per-run records, so sweep results can be
-cached, merged and compared offline.
+"""Metrics warehouse: per-job and per-run records serialized from
+``SimResult`` so sweep results can be cached, merged and compared offline.
 
 A ``RunRecord`` is the unit the cache stores and the stats layer consumes.
 It is deliberately plain JSON (no pickles): records written by one engine
 version remain readable by the next, and records either package wrote read
 in the other.  This is the port's own copy of the JAX package's
-``experiments/metrics.py``; ``run_record_from_result``, which reads the
-event engine's ``SimResult``, waits for the port's event engine.
+``experiments/metrics.py`` (pure Python; a test holds the event engine's
+records byte-equal to the original's).
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from repro_torch.simcluster.traces import _dumps
+from repro_torch.simcluster.sim import SimResult
+from repro_torch.simcluster.traces import Trace, _dumps
 
 RECORD_VERSION = 1
 
@@ -120,3 +121,51 @@ class RunRecord:
         d = dict(d)
         d["jobs"] = [JobRecord.from_dict(j) for j in d.get("jobs", [])]
         return cls(**d)
+
+
+def run_record_from_result(result: SimResult, *, trace: Trace,
+                           cluster_dict: Dict[str, object], scheduler: str,
+                           seed: int, wall_time_s: float,
+                           policy: Optional[Dict[str, object]] = None
+                           ) -> RunRecord:
+    """Flatten a ``SimResult`` into the warehouse record."""
+    by_id = {tj.job_id: tj for tj in trace.jobs}
+    jobs: List[JobRecord] = []
+    for jid, rt in result.jobs.items():
+        tj = by_id.get(jid)
+        finish = rt.finish_time
+        ct = None if finish is None else finish - rt.spec.submit_time
+        jobs.append(JobRecord(
+            job_id=jid,
+            workload=tj.workload if tj else rt.spec.profile.name,
+            input_gb=rt.spec.input_size_gb,
+            submit_time=rt.spec.submit_time,
+            deadline=rt.spec.deadline,
+            finish_time=finish,
+            completion_time=ct,
+            deadline_met=(finish is not None
+                          and finish <= rt.absolute_deadline + 1e-9),
+            local_map_launches=rt.local_map_launches,
+            remote_map_launches=rt.remote_map_launches,
+            reconfig_map_launches=rt.reconfig_map_launches,
+        ))
+    return RunRecord(
+        trace_name=trace.name,
+        trace_seed=trace.seed,
+        cluster=cluster_dict,
+        scheduler=scheduler,
+        seed=seed,
+        makespan=result.makespan,
+        throughput_jph=result.throughput_jobs_per_hour(),
+        jobs_total=len(result.jobs),
+        jobs_finished=sum(1 for j in jobs if j.finish_time is not None),
+        deadlines_met=result.deadlines_met(),
+        locality_rate=result.locality_rate(),
+        speculative_launches=result.speculative_launches,
+        events_processed=result.events_processed,
+        wall_time_s=wall_time_s,
+        reconfig_stats=dict(result.reconfig_stats),
+        jobs=jobs,
+        policy=policy,
+        serve=dict(result.serve_stats),
+    )

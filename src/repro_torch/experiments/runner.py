@@ -1,8 +1,13 @@
-"""Declarative sweep grids and their on-disk cache layout, as the port's own
-copy of the JAX package's ``experiments/runner.py``.
+"""Declarative sweep runner with on-disk result caching.
 
 An ``ExperimentSpec`` is a grid: traces x cluster shapes x schedulers x sim
-seeds.  Cache layout (``<cache_dir>/``)::
+seeds.  ``run_experiment`` materializes every cell, serves the ones already
+on disk from the cache, fans the missing ones out over a ``multiprocessing``
+pool, and returns the merged ``RunRecord`` list plus simulated/cached
+counts — re-running a finished sweep performs **zero** new simulations, and
+a partially-extended grid only simulates the new cells.
+
+Cache layout (``<cache_dir>/``)::
 
     <cell_hash>/meta.json      # the cell descriptor that produced the hash
     <cell_hash>/seed<k>.json   # one RunRecord per sim seed
@@ -11,27 +16,37 @@ seeds.  Cache layout (``<cache_dir>/``)::
 identity (file content hash for path traces; config + seed for generated
 ones), ``ClusterSpec.to_dict()``, scheduler name, sim parameters and a
 cache-format version.  The sim seed stays out of the hash so a sweep that
-adds seeds reuses the same cell directory.  The descriptors are the
-original's byte for byte (a test holds them equal); ``simulate_cell`` and
-``run_experiment``, which run the event engine, wait for the port's event
-engine.  The fluid surrogate's sweeps are
+adds seeds reuses the same cell directory.
+
+This is the port's own copy of the JAX package's ``experiments/runner.py``:
+the descriptors are the original's byte for byte, so a cache either package
+wrote is re-served by the other (tests hold both).  Pool workers import
+no ``torch``: they run only the event engine, pure Python on the host.
+The fluid surrogate's sweeps are
 ``repro_torch.experiments.surrogate.run_surrogate``.
 """
 from __future__ import annotations
 
 import hashlib
+import json
+import multiprocessing
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 from repro_torch.core.policies import PolicyError, PolicySpec
 from repro_torch.core.types import ClusterSpec
-from repro_torch.experiments.metrics import RunRecord
+from repro_torch.experiments.metrics import RunRecord, run_record_from_result
+from repro_torch.simcluster.sim import ClusterSim
 from repro_torch.simcluster.traces import (PRESETS, Trace, TraceConfig, _dumps,
                                            generate_trace, paper_trace,
                                            trace_from_rows)
 
 CACHE_VERSION = 1
+# the canonical preset names (kept for compatibility; the scheduler axis
+# accepts any registered PolicySpec — see repro_torch.core.policies)
+SCHEDULERS = ("proposed", "adaptive", "fair", "fifo")
 
 
 @dataclass(frozen=True)
@@ -184,7 +199,83 @@ class SweepReport:
         return out
 
 
+def simulate_cell(cell: Cell) -> Dict[str, object]:
+    """Run one grid cell; module-level so pool workers can pickle it."""
+    trace = cell.trace.resolve(cell.seed)
+    spec = cell.cluster
+    jobs = trace.job_specs(spec)
+    sched = cell.scheduler.build(spec)
+    sim = ClusterSim(spec, sched, seed=cell.seed,
+                     straggler_prob=cell.straggler_prob,
+                     straggler_factor=cell.straggler_factor,
+                     speculative=cell.speculative,
+                     speculation_threshold=cell.speculation_threshold)
+    t0 = time.perf_counter()
+    result = sim.run(jobs)
+    wall = time.perf_counter() - t0
+    record = run_record_from_result(
+        result, trace=trace, cluster_dict=spec.to_dict(),
+        scheduler=cell.scheduler.label, seed=cell.seed, wall_time_s=wall,
+        policy=cell.scheduler.to_dict())
+    return record.to_dict()
+
+
 def _cell_paths(cache_dir: Path, cell: Cell) -> Tuple[Path, Path]:
     cell_dir = cache_dir / cell.cache_hash()
     return cell_dir, cell_dir / f"seed{cell.seed}.json"
 
+
+def run_experiment(spec: ExperimentSpec,
+                   cache_dir: Union[str, Path],
+                   *, workers: int = 0,
+                   progress=None) -> SweepReport:
+    """Run (or re-serve from cache) every cell of ``spec``.
+
+    ``workers=0``/``1`` simulates inline; ``workers>1`` fans the missing
+    cells out over a ``multiprocessing`` pool.  Cache files are written by
+    the parent only, after each result arrives."""
+    cache_dir = Path(cache_dir)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    records: List[RunRecord] = []
+    todo: List[Cell] = []
+    for cell in spec.cells():
+        _, result_path = _cell_paths(cache_dir, cell)
+        if result_path.exists():
+            records.append(RunRecord.from_dict(
+                json.loads(result_path.read_text())))
+        else:
+            todo.append(cell)
+    if progress:
+        progress(f"[{spec.name}] {spec.n_cells()} cells: "
+                 f"{len(records)} cached, {len(todo)} to simulate")
+
+    if todo:
+        if workers > 1 and len(todo) > 1:
+            # spawn, not fork: the parent may hold jax/threading state (e.g.
+            # under pytest), and the worker import chain is jax-free and cheap
+            ctx = multiprocessing.get_context("spawn")
+            with ctx.Pool(processes=min(workers, len(todo))) as pool:
+                results = pool.map(simulate_cell, todo)
+        else:
+            results = [simulate_cell(cell) for cell in todo]
+        for cell, rec_dict in zip(todo, results):
+            cell_dir, result_path = _cell_paths(cache_dir, cell)
+            cell_dir.mkdir(parents=True, exist_ok=True)
+            meta_path = cell_dir / "meta.json"
+            if not meta_path.exists():
+                meta_path.write_text(
+                    json.dumps(cell.descriptor(), indent=2, sort_keys=True)
+                    + "\n")
+            result_path.write_text(_dumps(rec_dict) + "\n")
+            records.append(RunRecord.from_dict(rec_dict))
+            if progress:
+                progress(f"  simulated {cell.scheduler.label} seed={cell.seed} "
+                         f"({rec_dict['events_processed']} events, "
+                         f"{rec_dict['wall_time_s']:.2f}s)")
+
+    records.sort(key=lambda r: (r.trace_name, r.trace_seed,
+                                _dumps(r.cluster),
+                                r.scheduler, r.seed))
+    return SweepReport(spec_name=spec.name, records=records,
+                       simulated=len(todo),
+                       cached=spec.n_cells() - len(todo))

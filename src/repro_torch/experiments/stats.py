@@ -8,8 +8,8 @@ replication unit), which makes no normality assumption — gains here are
 ratios of makespan-derived throughputs and visibly skewed.
 
 This is the port's own copy of the JAX package's ``experiments/stats.py``:
-the bootstrap, the paired comparison and the throughput gain the
-surrogate's calibration reads.
+the bootstrap, the paired comparisons the surrogate's calibration and the
+``compare`` verb read, and the serving fold's latency summary.
 """
 from __future__ import annotations
 
@@ -39,6 +39,20 @@ def percentile(values: Sequence[float], q: float) -> float:
         return ordered[0]
     rank = math.ceil(q / 100.0 * len(ordered))
     return ordered[rank - 1]
+
+
+def latency_summary(samples: Sequence[float]) -> Dict[str, float]:
+    """Exact p50/p99/mean over request sojourn samples (the serving
+    fold's summary unit).  An empty sample folds to zeros — a service
+    that received no requests has no latency, not an error."""
+    if not samples:
+        return {"n": 0, "mean": 0.0, "p50": 0.0, "p99": 0.0}
+    return {
+        "n": len(samples),
+        "mean": sum(samples) / len(samples),
+        "p50": percentile(samples, 50.0),
+        "p99": percentile(samples, 99.0),
+    }
 
 
 def bootstrap_mean_ci(values: Sequence[float], *, n_boot: int = DEFAULT_N_BOOT,
@@ -149,4 +163,58 @@ def compare_throughput(records_a: Sequence[RunRecord],
         [pa.throughput_jph for pa, _ in pairs],
         [pb.throughput_jph for _, pb in pairs],
         metric="throughput_jobs_per_hour", higher_is_better=True,
+        n_boot=n_boot, seed=seed)
+
+
+def compare_completion_by_workload(records_a: Sequence[RunRecord],
+                                   records_b: Sequence[RunRecord], *,
+                                   n_boot: int = DEFAULT_N_BOOT,
+                                   seed: int = 0
+                                   ) -> Dict[str, PairedComparison]:
+    """Per-workload completion-time gain (B faster than A) — the Fig.-3 view."""
+    pairs = _pair_records(records_a, records_b)
+    per_a: Dict[str, List[float]] = {}
+    per_b: Dict[str, List[float]] = {}
+    for pa, pb in pairs:
+        ca, cb = (pa.mean_completion_by_workload(),
+                  pb.mean_completion_by_workload())
+        for w in set(ca) & set(cb):
+            per_a.setdefault(w, []).append(ca[w])
+            per_b.setdefault(w, []).append(cb[w])
+    return {w: paired_bootstrap(per_a[w], per_b[w],
+                                metric=f"completion_time[{w}]",
+                                higher_is_better=False, n_boot=n_boot,
+                                seed=seed)
+            for w in sorted(per_a)}
+
+
+def compare_deadlines(records_a: Sequence[RunRecord],
+                      records_b: Sequence[RunRecord]) -> Dict[str, float]:
+    """Mean deadlines-met per run for each side (no CI — small integers)."""
+    pairs = _pair_records(records_a, records_b)
+    return {
+        "mean_a": sum(pa.deadlines_met for pa, _ in pairs) / len(pairs),
+        "mean_b": sum(pb.deadlines_met for _, pb in pairs) / len(pairs),
+        "n_pairs": len(pairs),
+    }
+
+
+def compare_serve_p99(records_a: Sequence[RunRecord],
+                      records_b: Sequence[RunRecord], *,
+                      n_boot: int = DEFAULT_N_BOOT,
+                      seed: int = 0) -> PairedComparison:
+    """Whole-run serving p99-latency delta of B vs A (lower is better),
+    paired per (trace, cluster, seed).  Both sides must carry serving
+    metrics (``RunRecord.serve``) — e.g. a harvest policy vs its
+    no-harvest baseline on an identical service fleet."""
+    pairs = _pair_records(records_a, records_b)
+    missing = [r.scheduler for r, _ in pairs if not r.serve] + \
+              [r.scheduler for _, r in pairs if not r.serve]
+    if missing:
+        raise ValueError(
+            f"runs without serving metrics cannot compare p99: {missing}")
+    return paired_bootstrap(
+        [pa.serve["p99_ms"] for pa, _ in pairs],
+        [pb.serve["p99_ms"] for _, pb in pairs],
+        metric="serve_p99_ms", higher_is_better=False,
         n_boot=n_boot, seed=seed)

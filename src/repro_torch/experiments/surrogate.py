@@ -16,10 +16,11 @@ package's, so the port's cells hash apart from both.
 **Calibration gate.**  ``CALIBRATED`` is the original's allowlist: the
 (preset, fleet shape) pairs and policies whose policy-vs-fair throughput
 gain the surrogate reproduces inside the event oracle's paired-bootstrap CI
-on identical (trace, seed) cells.  ``tests/test_torch_surrogate.py`` holds
-the port to it, with the JAX package's event engine as the oracle.
-``calibrate``, which runs the oracle itself, waits for the port's event
-engine.
+on identical (trace, seed) cells.  ``calibrate`` recomputes the comparison
+on demand: the port's own event engine (``repro_torch.simcluster.sim``,
+pure Python on the host) is the oracle, and the surrogate side runs on
+``device`` (the card unless the caller names another).  The ``surrogate``
+CLI verb prints it next to every sweep.
 """
 from __future__ import annotations
 
@@ -27,22 +28,28 @@ import dataclasses
 import hashlib
 import json
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.experiments.metrics import JobRecord, RunRecord
-from repro_torch.experiments.runner import Cell, ExperimentSpec, SweepReport
+from repro_torch.experiments.regimes import regime_spec
+from repro_torch.experiments.runner import (Cell, ExperimentSpec, SweepReport,
+                                            run_experiment)
+from repro_torch.experiments.stats import PairedComparison, compare_throughput
 from repro_torch.simcluster.surrogate import (SURROGATE_ENGINE_ID,
-                                              SurrogateResult, build_cell,
-                                              lower_policy, run_batch)
+                                              SurrogateResult, _device,
+                                              build_cell, lower_policy,
+                                              run_batch)
 from repro_torch.simcluster.traces import _dumps
 
 #: the differential wall's verdict, pinned: (preset, fleet shape) → the
 #: policy labels whose policy-vs-fair gain the surrogate reproduces inside
 #: the event oracle's 95% paired-bootstrap CI (4 paired seeds).  The walls
-#: in tests/test_surrogate.py and tests/test_torch_surrogate.py re-derive
-#: this table from live runs and fail loudly on any drift — growing it
-#: requires re-calibration, not an edit here.
+#: in tests/test_surrogate.py, tests/test_torch_surrogate.py and
+#: tests/test_torch_calibration.py re-derive this table from live runs and
+#: fail loudly on any drift — growing it requires re-calibration, not an
+#: edit here.
 CALIBRATED: Dict[Tuple[str, str], Tuple[str, ...]] = {
     ("heavy_tail", "20x2"): ("proposed", "delay", "edf_nopark"),
     ("diurnal", "20x2"): ("proposed", "delay", "fifo", "edf_nopark"),
@@ -171,3 +178,76 @@ def run_surrogate(spec: ExperimentSpec, cache_dir: Union[str, Path],
     return SweepReport(spec_name=spec.name, records=records,
                        simulated=len(todo),
                        cached=spec.n_cells() - len(todo))
+
+
+# ---------------------------------------------------------------------------
+# differential calibration
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PolicyCalibration:
+    """One (policy vs fair) differential: oracle CI vs surrogate mean."""
+
+    policy: str
+    oracle: PairedComparison
+    surrogate_gain_pct: float
+    allowlisted: bool
+
+    @property
+    def inside(self) -> bool:
+        return (self.oracle.ci_lo_pct <= self.surrogate_gain_pct
+                <= self.oracle.ci_hi_pct)
+
+
+@dataclass
+class CalibrationReport:
+    preset: str
+    shape: str
+    seeds: Tuple[int, ...]
+    policies: List[PolicyCalibration] = field(default_factory=list)
+
+    @property
+    def wall_green(self) -> bool:
+        """Every allowlisted policy's surrogate gain inside the oracle CI."""
+        return all(p.inside for p in self.policies if p.allowlisted)
+
+
+def calibrate(preset: str, shape: str, cache_dir: Union[str, Path],
+              *, seeds: Sequence[int] = CALIBRATION_SEEDS,
+              policies: Optional[Sequence[str]] = None,
+              workers: int = 0, progress=None,
+              device="cuda") -> CalibrationReport:
+    """Run surrogate and event engine on identical (trace, seed) cells and
+    compare each policy's throughput-vs-fair gain against the oracle's
+    paired-bootstrap CI.
+
+    ``policies`` defaults to every surrogate-lowerable policy under test
+    (the allowlisted set plus any extra being evaluated for promotion);
+    ``fair`` is always added as the shared baseline.  Both engines read
+    and write ``cache_dir`` — their cells hash into disjoint namespaces.
+    The oracle runs on the host (``workers`` > 1: a ``spawn`` pool); the
+    surrogate on ``device``, which is checked before the oracle runs.
+    """
+    _device(device)                  # no card and no fallback: raise now
+    allow = CALIBRATED.get((preset, shape), ())
+    pols = tuple(policies) if policies is not None else allow
+    pols = tuple(p for p in pols if p != "fair")
+    base = regime_spec(preset, shape, seeds=tuple(seeds))
+    spec = ExperimentSpec(name=f"surrogate-cal-{preset}-{shape}",
+                          traces=base.traces, clusters=base.clusters,
+                          schedulers=pols + ("fair",),
+                          seeds=tuple(seeds))
+    oracle = run_experiment(spec, cache_dir, workers=workers,
+                            progress=progress)
+    sur = run_surrogate(spec, cache_dir, progress=progress, device=device)
+    o_by = oracle.by_scheduler()
+    s_by = sur.by_scheduler()
+    report = CalibrationReport(preset=preset, shape=shape,
+                               seeds=tuple(seeds))
+    for pol in pols:
+        oc = compare_throughput(o_by["fair"], o_by[pol])
+        sc = compare_throughput(s_by["fair"], s_by[pol])
+        report.policies.append(PolicyCalibration(
+            policy=pol, oracle=oc, surrogate_gain_pct=sc.mean_gain_pct,
+            allowlisted=pol in allow))
+    return report

@@ -1,2 +1,3 @@
-"""The cluster model of the paper: workloads, traces and the batched fluid
-surrogate of the event engine, whose scan runs on the card."""
+"""The cluster model of the paper: workloads, traces, the discrete-event
+engine (pure Python on the host) and its batched fluid surrogate, whose
+scan runs on the card."""

@@ -27,8 +27,8 @@ per seed and ``save -> load -> save`` round-trips bit-exactly (floats
 survive JSON via ``repr`` round-tripping).
 
 This is the port's own copy of the JAX package's ``simcluster/traces.py``
-(pure Python; a test holds every preset's trace byte-equal to the
-original's).  The SWIM importer is not copied yet.
+(pure Python; a test holds every preset's trace, and the SWIM importer's
+output, byte-equal to the original's).
 """
 from __future__ import annotations
 
@@ -42,9 +42,9 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from repro_torch.core.types import ClusterSpec, JobSpec
 from repro_torch.simcluster.workloads import (PAPER_SKEW, PAPER_TABLE2_ROWS,
-                                        WORKLOADS, default_deadline,
-                                        n_map_tasks, n_reduce_tasks,
-                                        place_blocks)
+                                              WORKLOADS, default_deadline,
+                                              n_map_tasks, n_reduce_tasks,
+                                              place_blocks)
 
 TRACE_FORMAT = "repro-trace/v1"
 
@@ -389,7 +389,147 @@ def paper_trace(seed: int = 0) -> Trace:
 
 
 # ---------------------------------------------------------------------------
-# named presets
+# real-trace import: SWIM / Facebook-format cluster logs
+# ---------------------------------------------------------------------------
+
+SWIM_FORMAT = "swim/v1"
+
+# Per-workload (shuffle/input, output/input) byte-ratio signatures, from the
+# profile calibration above: grep emits almost nothing, wordcount compresses
+# moderately, sort is identity map/reduce, permutation blows intermediate
+# data up ~4x, inverted_index is moderate-heavy.  An imported job is tagged
+# with the nearest signature in log-ratio space — the same features SWIM
+# itself uses to cluster jobs (k-means over per-job byte counts).
+SWIM_SIGNATURES: Dict[str, Tuple[float, float]] = {
+    "grep": (0.05, 0.01),
+    "wordcount": (0.8, 0.2),
+    "sort": (1.0, 1.0),
+    "permutation": (4.0, 1.5),
+    "inverted_index": (1.2, 0.4),
+}
+
+# Ratios are clamped here before the log so zero-byte columns (common in real
+# logs: map-only jobs, empty outputs) classify as the smallest signature
+# instead of crashing.
+_RATIO_FLOOR = 1e-4
+
+
+class TraceImportError(ValueError):
+    """A cluster log could not be parsed into a trace."""
+
+
+def classify_swim_workload(input_bytes: float, shuffle_bytes: float,
+                           output_bytes: float) -> str:
+    """Nearest paper workload for one logged job, by squared distance over
+    (log shuffle/input, log output/input).  Deterministic: ties break on the
+    sorted workload name, and the inputs are already normalized floats."""
+    inp = max(float(input_bytes), 1.0)
+    s_ratio = max(float(shuffle_bytes) / inp, _RATIO_FLOOR)
+    o_ratio = max(float(output_bytes) / inp, _RATIO_FLOOR)
+    ls, lo = math.log10(s_ratio), math.log10(o_ratio)
+    best, best_d = None, math.inf
+    for w in sorted(SWIM_SIGNATURES):
+        sig_s, sig_o = SWIM_SIGNATURES[w]
+        d = (ls - math.log10(sig_s)) ** 2 + (lo - math.log10(sig_o)) ** 2
+        if d < best_d:
+            best, best_d = w, d
+    return best
+
+
+def _parse_swim_line(line_no: int, line: str) -> Tuple[str, float, float, float, float]:
+    """One SWIM row: job_id, submit_time_s, inter_arrival_gap_s,
+    map_input_bytes, shuffle_bytes, reduce_output_bytes (whitespace- or
+    tab-separated; the gap column is redundant and ignored)."""
+    cols = line.split()
+    if len(cols) != 6:
+        raise TraceImportError(
+            f"line {line_no}: expected 6 whitespace-separated columns "
+            f"(job_id, submit_time, gap, input_bytes, shuffle_bytes, "
+            f"output_bytes), got {len(cols)}: {line[:80]!r}")
+    job_id = cols[0]
+    try:
+        submit = float(cols[1])
+        inp, shuf, out = (float(cols[3]), float(cols[4]), float(cols[5]))
+    except ValueError as e:
+        raise TraceImportError(f"line {line_no}: non-numeric field: {e}") from None
+    if submit < 0:
+        raise TraceImportError(f"line {line_no}: negative submit time {submit}")
+    if min(inp, shuf, out) < 0:
+        raise TraceImportError(f"line {line_no}: negative byte count")
+    return job_id, submit, inp, shuf, out
+
+
+def import_swim(text: str, *, name: str = "swim",
+                deadline_slack: float = 2.2, skew: float = PAPER_SKEW,
+                min_input_gb: float = 0.125, max_input_gb: float = 64.0,
+                max_jobs: Optional[int] = None) -> Trace:
+    """Convert a SWIM/Facebook-format cluster log into a ``repro-trace/v1``
+    trace.
+
+    Normalization is byte-stable: arrivals are shifted so the first job
+    submits at t=0 and rounded to milliseconds, input sizes are converted to
+    GB, clamped to [min_input_gb, max_input_gb] and rounded to 3 decimals,
+    deadlines come from the calibrated ``default_deadline`` of the
+    classified workload, and every ``placement_seed`` is a stable hash of
+    (name, row index, normalized fields) — importing the same log twice
+    yields byte-identical JSONL.
+    """
+    rows = []
+    for line_no, raw in enumerate(text.splitlines(), start=1):
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.startswith("{"):
+            raise TraceImportError(
+                f"line {line_no}: looks like JSON, not a SWIM log — if this "
+                f"is already a {TRACE_FORMAT} trace, load it with "
+                "Trace.load() instead of importing")
+        rows.append(_parse_swim_line(line_no, line))
+        if max_jobs is not None and len(rows) >= max_jobs:
+            break
+    if not rows:
+        raise TraceImportError("empty trace: no job rows found")
+    t0 = min(r[1] for r in rows)
+    rows.sort(key=lambda r: (r[1], r[0]))   # stable: arrival, then source id
+    jobs: List[TraceJob] = []
+    for i, (src_id, submit, inp, shuf, out) in enumerate(rows):
+        w = classify_swim_workload(inp, shuf, out)
+        gb = round(min(max_input_gb, max(min_input_gb, inp / 1e9)), 3)
+        t = round(submit - t0, 3)
+        jobs.append(TraceJob(
+            job_id=f"{name}-{i:04d}-{w}",
+            workload=w,
+            input_gb=gb,
+            submit_time=t,
+            deadline=round(default_deadline(w, gb, slack=deadline_slack), 3),
+            placement_seed=_stable_seed("swim-import", name, i, src_id, t, gb, w)
+            % (1 << 31),
+            skew=skew,
+        ))
+    config = {
+        "importer": SWIM_FORMAT,
+        "deadline_slack": deadline_slack,
+        "skew": skew,
+        "min_input_gb": min_input_gb,
+        "max_input_gb": max_input_gb,
+        "jobs_in": len(rows),
+    }
+    return Trace(name=name, seed=0, jobs=jobs, config=config)
+
+
+def import_swim_file(path: Union[str, Path], **kwargs) -> Trace:
+    """``import_swim`` over a log file; the default trace name is the stem."""
+    path = Path(path)
+    kwargs.setdefault("name", path.stem)
+    try:
+        text = path.read_text()
+    except OSError as e:
+        raise TraceImportError(f"cannot read {path}: {e}") from None
+    return import_swim(text, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# named presets (CLI: `python -m repro_torch.experiments generate --preset ...`)
 # ---------------------------------------------------------------------------
 
 PRESETS: Dict[str, TraceConfig] = {
