@@ -38,10 +38,17 @@ every calibrated (preset, shape) pair, the port's event engine on the host
 as the oracle and the fluid scan on the card, must put every allowlisted
 policy's gain inside the oracle's CI, and is served from its cache the
 second time; the `surrogate` verb runs as a user runs it; and one cell at
-20 and 100 machines is timed through both engines.
+20 and 100 machines is timed through both engines.  The paper's own
+evaluation and the rest of the experiments layer run on the host as a user
+runs them: `paper` at its twelve seeds must reproduce the paper's claims and
+print the report a CPU test pins, the atlas's quick sub-grid runs and is then
+served from its cache, `explain` exports its traces, and the two event
+engines (the indexed one and the frozen seed engine) are timed side by side
+and must agree on every decision.
 Every phase prints one JSON line; any failure raises, so the exit code is
-not 0.  The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
-device it prints no result and exits with code 1.
+not 0.  Everything printed also goes to `chiprun_out/chip_smoke.log`.  The
+last line is `{"ok": true, "device": {...}}`.  Without a CUDA device it
+prints no result and exits with code 1.
 """
 from __future__ import annotations
 
@@ -291,6 +298,33 @@ CAL_HOST_SHAPES = ("20x2", "100x2")
 # operations; the allocators' rounds, which depend on the data, are left out,
 # so the bound is below what the data needs
 FLUID_OPS_PER_JOB_STEP = 4 * 63 + 80
+# the experiments phase: the paper's §5 evaluation and the rest of the
+# experiments layer as a user runs them, on the host.  PAPER_REPORT is what
+# `python -m repro_torch.experiments paper` prints at its twelve seeds into a
+# fresh cache: the JAX package's report, byte for byte (tests/test_torch_paper.py
+# holds it to the original on the CPU; the card machine has no JAX)
+PAPER_REPORT = (
+    '== paper reproduction (proposed vs fair, 12 paired seeds; 24 simulated, 0 cached) ==\n'
+    '  throughput_jobs_per_hour: fair 53.7 vs proposed 67.2  gain +27.5% [+11.9%, +41.7%] (95% CI, n=12, win rate 83%)   (paper claims ~12%)\n'
+    '  deadlines met/run: fair 5.0 -> proposed 5.0\n'
+    '  Fig.3 per-workload completion-time gain:\n'
+    '    sort              +31.7% [ +25.8%,  +38.3%]\n'
+    '    grep              +20.6% [ +15.0%,  +27.2%]\n'
+    '    wordcount         +19.9% [ +10.7%,  +29.2%]\n'
+    '    inverted_index    +14.2% [  -0.9%,  +26.5%]\n'
+    '    permutation       -19.9% [ -42.5%,   +1.5%]\n'
+    '  weakest-gain workload: permutation (paper: permutation)\n'
+    '  claims: REPRODUCED')
+EXP_TIMEOUT_S = 600
+# the atlas's --quick sub-grid (5 presets x {20x2, 50x2} x 2 seeds x 6 policy
+# columns = 120 cells; the full atlas has 2,928) with one serving
+# profile, so that the serve report and its markdown section are written too
+# (2 shapes x 2 seeds x harvest / adaptive = 8 cells)
+ATLAS_SERVE = "svc_heavy_loose"
+ATLAS_CELLS = 120
+ATLAS_SERVE_CELLS = 8
+EXPLAIN_CELL = ("heavy_tail", "20x2")
+LOG = ROOT / "chiprun_out" / "chip_smoke.log"
 
 
 def emit(phase: str, **fields) -> None:
@@ -2451,12 +2485,161 @@ def phase_calibration() -> dict:
     return result
 
 
+def run_verb(argv, env, timeout=EXP_TIMEOUT_S):
+    """One `python -m repro_torch.experiments` verb in a subprocess, as a user
+    runs it: (stdout, seconds).  A non-zero exit fails the phase."""
+    cmd = [sys.executable, "-m", "repro_torch.experiments", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    shown = " ".join(str(a).replace(str(ROOT) + os.sep, "") for a in argv)
+    print(f"$ python -m repro_torch.experiments {shown}  ({seconds:.3f} s)", flush=True)
+    if proc.returncode != 0:
+        print(proc.stdout, end="", flush=True)
+        print(proc.stderr, file=sys.stderr, flush=True)
+        raise AssertionError(f"`{shown}` exited with {proc.returncode}")
+    return proc.stdout, seconds
+
+
+def phase_experiments(smi_line: str) -> dict:
+    """The paper's §5 evaluation and the rest of the experiments layer on the
+    port alone, on the host, each verb in a subprocess into a directory under
+    `build/`: `paper` at its twelve seeds (exit 0, so `claims: REPRODUCED`,
+    and its report the one the CPU test pins, line for line); `regimes
+    --quick` (the atlas's 120-cell sub-grid, plus one serving profile so the
+    serve report is written) with min(8, cores) workers, its reports and
+    markdown under `build/`, then again into the same cache, which must
+    simulate nothing; `explain heavy_tail 20x2 --export` against the atlas's
+    cache, both Chrome traces loading as JSON; `faults --list` and `serve
+    --list`; and the two event engines side by side
+    (`scripts/bench_torch_sim.py --quick`), which fails unless every
+    scenario both engines ran has parity.  The repo's EXPERIMENTS.md must be
+    untouched."""
+    import importlib.util
+    import shutil
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    d = ROOT / "build" / "experiments"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    experiments_md = (ROOT / "EXPERIMENTS.md").read_bytes() \
+        if (ROOT / "EXPERIMENTS.md").exists() else None
+    seconds = {}
+
+    out, seconds["paper"] = run_verb(["paper", "--cache", d / "paper-cache"], env)
+    print(out, end="", flush=True)
+    if out != PAPER_REPORT + "\n":
+        got, want = out.splitlines(), PAPER_REPORT.splitlines()
+        diff = [(i, w, g) for i, (w, g) in enumerate(zip(want, got)) if w != g]
+        raise AssertionError(f"the paper report differs from the pinned one: "
+                             f"{len(got)} lines vs {len(want)}, first differences {diff[:3]}")
+
+    workers = min(8, os.cpu_count() or 1)
+    atlas = ["regimes", "--quick", "--workers", str(workers), "--serve", ATLAS_SERVE,
+             "--cache", d / "atlas-cache", "--out", d / "regimes.json",
+             "--serve-out", d / "serve_regimes.json", "--markdown", d / "atlas.md"]
+    out, seconds["regimes_quick"] = run_verb(atlas, env)
+    print(out, end="", flush=True)
+    fresh = (f"2 paired seeds/cell; {ATLAS_CELLS} simulated, 0 cached",
+             f"2 paired seeds/cell; {ATLAS_SERVE_CELLS} simulated, 0 cached")
+    if not all(x in out for x in fresh):
+        raise AssertionError(f"the quick atlas did not simulate {ATLAS_CELLS} + "
+                             f"{ATLAS_SERVE_CELLS} fresh cells")
+    report = json.loads((d / "regimes.json").read_text())
+    serve_report = json.loads((d / "serve_regimes.json").read_text())
+    md = (d / "atlas.md").read_text()
+    if len(report["cells"]) != 10 or len(serve_report["cells"]) != 2 or \
+            "| regime |" not in md or "serve:table:start" not in md:
+        raise AssertionError("the atlas's reports or markdown are not what the verb writes")
+    out, seconds["regimes_quick_cached"] = run_verb(atlas, env)
+    cached = (f"0 simulated, {ATLAS_CELLS} cached", f"0 simulated, {ATLAS_SERVE_CELLS} cached")
+    if not all(x in out for x in cached):
+        print(out, end="", flush=True)
+        raise AssertionError("the second atlas run into the same cache simulated cells")
+    print(out.splitlines()[0], flush=True)
+
+    out, seconds["explain"] = run_verb(["explain", *EXPLAIN_CELL, "--cache", d / "atlas-cache",
+                                        "--export", d / "explain"], env)
+    print(out, end="", flush=True)
+    traces = sorted((d / "explain").glob("*.chrome.json"))
+    if len(traces) != 2 or not all(json.loads(p.read_text())["traceEvents"] for p in traces):
+        raise AssertionError(f"explain exported {len(traces)} Chrome traces")
+    stored = sorted((d / "atlas-cache").rglob("*.trace.json"))
+    if not stored:
+        raise AssertionError("explain stored no summary beside the atlas's records")
+
+    for verb in (["faults", "--list"], ["serve", "--list"]):
+        out, seconds[verb[0] + "_list"] = run_verb(verb, env)
+        if out.count("\n") < 5:
+            raise AssertionError(f"`{' '.join(verb)}` printed {out!r}")
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch_sim", ROOT / "scripts" / "bench_torch_sim.py")
+    bench_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench_mod)
+    t0 = time.perf_counter()
+    engines = bench_mod.bench(quick=True)
+    seconds["bench_torch_sim"] = time.perf_counter() - t0
+    (d / "bench_torch_sim.json").write_text(json.dumps(engines, indent=2) + "\n")
+    print(bench_mod.format_report(engines), flush=True)
+    both = {n: r["parity"] for n, r in engines["scenarios"].items() if r["parity"] is not None}
+    if not both or not all(both.values()):
+        raise AssertionError(f"the two event engines disagree: {both}")
+
+    if experiments_md is not None and (ROOT / "EXPERIMENTS.md").read_bytes() != experiments_md:
+        raise AssertionError("the experiments phase changed the repo's EXPERIMENTS.md")
+    seconds["phase"] = time.perf_counter() - t_phase
+    for key, s in seconds.items():
+        print(f"experiments: {key} {s:.3f} s on the host ({smi_line})", flush=True)
+    result = {
+        "seconds": seconds, "workers": workers, "cpu_count": os.cpu_count(),
+        "paper": {"seeds": 12, "claims": "REPRODUCED", "rc": 0},
+        "atlas": {"cells": ATLAS_CELLS, "serve_cells": ATLAS_SERVE_CELLS,
+                  "verdicts": {f"{c['preset']}/{c['shape']}": [c["verdict"], c["adaptive_verdict"]]
+                               for c in report["cells"]}},
+        "explain": {"cell": EXPLAIN_CELL, "chrome_traces": len(traces)},
+        "engines": {n: {"indexed_events_per_sec": r["indexed"]["events_per_sec"],
+                        "legacy_events_per_sec": r["legacy"]["events_per_sec"]
+                        if "legacy" in r else None,
+                        "events": r["indexed"]["events"], "parity": r["parity"]}
+                    for n, r in engines["scenarios"].items()},
+        "nvidia_smi": smi_line}
+    emit("experiments", **result)
+    return result
+
+
+class Tee:
+    """A stream that also writes everything to the log."""
+
+    def __init__(self, stream, log):
+        self.stream, self.log = stream, log
+
+    def write(self, text):
+        self.log.write(text)
+        self.log.flush()
+        return self.stream.write(text)
+
+    def flush(self):
+        self.log.flush()
+        self.stream.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (without the package: fail before any output)
+    # the whole log, for runs whose output is read only to its end
+    LOG.parent.mkdir(parents=True, exist_ok=True)
+    log = open(LOG, "w")
+    sys.stdout, sys.stderr = Tee(sys.stdout, log), Tee(sys.stderr, log)
     from repro_torch.configs import get_config
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
     smi_line = phase_env()
@@ -2469,6 +2652,7 @@ def main() -> int:
     release()
     sur = phase_surrogate()
     cal = phase_calibration()
+    phase_experiments(smi_line)
     serves = {}
     for arch in SERVE_ARCHS:
         release()

@@ -19,9 +19,9 @@ engine's records under every policy byte-equal to the original's).  The
 fluid surrogate reads only the components and parameters
 (``repro_torch.simcluster.surrogate.lower_policy``).
 
-Not copied: the original's frozen seed engine (``simcluster/_legacy.py``)
-and its builders; ``build(..., legacy=True)`` raises ``PolicyError`` until
-ROADMAP's M10c ports it.
+The proposed, fair, fifo and delay registrations also carry a builder for
+the frozen seed engine (``repro_torch.simcluster._legacy``), the parity
+oracle: ``build(..., legacy=True)`` constructs it.
 """
 from __future__ import annotations
 
@@ -65,6 +65,8 @@ class Policy:
     components: Mapping[str, str]          # axis -> value (COMPONENT_AXES)
     defaults: Mapping[str, object]         # param name -> default value
     builder: Callable[[ClusterSpec, Dict[str, object]], object]
+    legacy_builder: Optional[Callable[[ClusterSpec, Dict[str, object]],
+                                      object]] = None
 
     def validate_params(self, params: Mapping[str, object]) -> Dict[str, object]:
         """Type-check ``params`` against the schema and return only the
@@ -110,7 +112,8 @@ PRESET_NAMES: Tuple[str, ...] = ("proposed", "adaptive", "fair", "fifo")
 
 def register_policy(name: str, *, description: str,
                     components: Mapping[str, str],
-                    defaults: Optional[Mapping[str, object]] = None):
+                    defaults: Optional[Mapping[str, object]] = None,
+                    legacy_builder: Optional[Callable] = None):
     """Decorator registering ``fn(cluster, params) -> scheduler`` under
     ``name``.  ``components`` must cover every axis in ``COMPONENT_AXES``
     (axes with an "off" value may be omitted and default to it)."""
@@ -129,7 +132,7 @@ def register_policy(name: str, *, description: str,
         _REGISTRY[name] = Policy(
             name=name, description=description,
             components=dict(components), defaults=dict(defaults or {}),
-            builder=fn)
+            builder=fn, legacy_builder=legacy_builder)
         return fn
     return deco
 
@@ -269,14 +272,19 @@ class PolicySpec:
     def build(self, cluster: ClusterSpec, *, legacy: bool = False):
         """Construct the scheduler this spec describes on ``cluster``.
 
-        ``legacy=True`` (the frozen seed engine's counterpart) raises
-        PolicyError: that engine waits for ROADMAP's M10c."""
+        ``legacy=True`` builds the frozen seed engine's counterpart (parity
+        oracle); policies with no legacy counterpart raise PolicyError."""
+        policy = self.policy
+        params = self.effective_params()
         if legacy:
-            raise PolicyError(
-                f"policy {self.name!r}: the frozen seed engine "
-                "(simcluster/_legacy.py) is not ported yet (ROADMAP M10c)")
-        sched = self.policy.builder(cluster, self.effective_params())
-        sched.policy = self
+            if policy.legacy_builder is None:
+                raise PolicyError(
+                    f"policy {self.name!r} has no legacy (seed-engine) "
+                    "counterpart")
+            sched = policy.legacy_builder(cluster, params)
+        else:
+            sched = policy.builder(cluster, params)
+            sched.policy = self
         sched.name = self.label
         return sched
 
@@ -320,12 +328,32 @@ def _adaptive_cluster(cluster: ClusterSpec,
                                      **overrides))
 
 
+def _legacy_proposed(cluster: ClusterSpec, p: Dict[str, object]):
+    from repro_torch.simcluster import _legacy as L
+    sched = L.LegacyCompletionTimeScheduler(
+        cluster, L.LegacyReconfigurator(cluster, max_wait=p["max_wait"]))
+    sched.park_depth = p["park_depth"]
+    return sched
+
+
+def _legacy_fair(cluster: ClusterSpec, p: Dict[str, object]):
+    from repro_torch.simcluster import _legacy as L
+    return L.LegacyFairScheduler(cluster,
+                                 locality_delay=p["locality_delay"])
+
+
+def _legacy_fifo(cluster: ClusterSpec, p: Dict[str, object]):
+    from repro_torch.simcluster import _legacy as L
+    return L.LegacyFIFOScheduler(cluster)
+
+
 @register_policy(
     "proposed",
     description="The paper's completion-time scheduler (Algorithm 2) with "
                 "fixed-patience VM-reconfiguration parking (Algorithm 1).",
     components={"ordering": "edf", "park": "fixed", "overload": "none"},
-    defaults={"max_wait": 30.0, "park_depth": 2})
+    defaults={"max_wait": 30.0, "park_depth": 2},
+    legacy_builder=_legacy_proposed)
 def _build_proposed(cluster: ClusterSpec, p: Dict[str, object]):
     from repro_torch.core.reconfigurator import Reconfigurator
     from repro_torch.core.scheduler import CompletionTimeScheduler
@@ -403,7 +431,8 @@ def _build_harvest(cluster: ClusterSpec, p: Dict[str, object]):
     description="Hadoop Fair Scheduler: equal instantaneous share, deficit "
                 "round-robin; no deadlines, estimator or reconfiguration.",
     components={"ordering": "fair_deficit", "park": "off", "overload": "none"},
-    defaults={"locality_delay": 0})
+    defaults={"locality_delay": 0},
+    legacy_builder=_legacy_fair)
 def _build_fair(cluster: ClusterSpec, p: Dict[str, object]):
     from repro_torch.core.baselines import FairScheduler
     return FairScheduler(cluster, locality_delay=p["locality_delay"])
@@ -412,7 +441,8 @@ def _build_fair(cluster: ClusterSpec, p: Dict[str, object]):
 @register_policy(
     "fifo",
     description="Hadoop default FIFO scheduler: submission order.",
-    components={"ordering": "fifo", "park": "off", "overload": "none"})
+    components={"ordering": "fifo", "park": "off", "overload": "none"},
+    legacy_builder=_legacy_fifo)
 def _build_fifo(cluster: ClusterSpec, p: Dict[str, object]):
     from repro_torch.core.baselines import FIFOScheduler
     return FIFOScheduler(cluster)
@@ -425,7 +455,8 @@ def _build_fifo(cluster: ClusterSpec, p: Dict[str, object]):
                 "has no data-local task on the offered node, then launches "
                 "remotely.",
     components={"ordering": "fair_deficit", "park": "off", "overload": "none"},
-    defaults={"locality_delay": 8})
+    defaults={"locality_delay": 8},
+    legacy_builder=_legacy_fair)
 def _build_delay(cluster: ClusterSpec, p: Dict[str, object]):
     from repro_torch.core.baselines import FairScheduler
     return FairScheduler(cluster, locality_delay=p["locality_delay"])

@@ -7,19 +7,24 @@ Subcommands::
     import     convert a SWIM/Facebook-format cluster log to repro-trace/v1
     run        sweep a (trace x cluster x policy x seeds) grid, cached
     compare    run two policies on the same grid, paired-bootstrap stats
+    regimes    fleet-scale preset x cluster-shape atlas (regime report)
     surrogate  sweep a preset grid through the batched fluid engine on the
                card (calibrated cells only by default) and print per-policy
                estimates plus the calibration error vs paired oracle cells
+    explain    replay one atlas cell with the decision-trace bus on and
+               print a decision-attribution summary (park/latch story)
+    paper      reproduce the paper's §5 evaluation and check its claims
     policies   list the registered scheduler policies (--smoke: run each
                on a tiny cluster and flag stranded work)
+    faults     list the named fault-injection profiles (--faults values)
+    serve      list the named serving profiles (--serve values)
 
-The event engine (``run``, ``compare``, ``policies --smoke`` and the
-surrogate's oracle) is pure Python on the host; the fluid surrogate
-integrates on the card, or on the CPU's plain version with ``--device
-cpu``.  There is no fallback: ``surrogate`` without a card and without
-``--device cpu`` exits non-zero.  Each verb prints what the original's
-prints, line for line.  The original's ``regimes``, ``explain``,
-``faults``, ``serve`` and ``paper`` verbs wait for ROADMAP's M10c.
+The event engine (``run``, ``compare``, ``regimes``, ``explain``,
+``paper``, ``policies --smoke`` and the surrogate's oracle) is pure Python
+on the host; the fluid surrogate integrates on the card, or on the CPU's
+plain version with ``--device cpu``.  There is no fallback: ``surrogate``
+without a card and without ``--device cpu`` exits non-zero.  Each verb
+prints what the original's prints, line for line.
 
 Scheduler arguments accept either a registered policy name (``proposed``,
 ``adaptive``, ``adaptive_ra``, ``delay``, ``fair``, ``fifo``, ...) or an
@@ -36,6 +41,8 @@ Examples::
         --schedulers proposed fair --seeds 0:3 --machines 20 --vms 2
     PYTHONPATH=src python -m repro_torch.experiments compare --preset mix_small \
         --a proposed --b fair --seeds 0:5
+    PYTHONPATH=src python -m repro_torch.experiments regimes --quick
+    PYTHONPATH=src python -m repro_torch.experiments paper --quick
     PYTHONPATH=src python -m repro_torch.experiments surrogate --shape 20x2 --seeds 0:8
     PYTHONPATH=src python -m repro_torch.experiments surrogate --device cpu heavy_tail
 """
@@ -52,6 +59,8 @@ from repro_torch.core.policies import (PolicyError, PolicySpec,
                                        smoke_test_policies)
 from repro_torch.core.types import ClusterSpec
 from repro_torch.experiments import regimes as regimes_mod
+from repro_torch.experiments.paperfig import (FULL_SEEDS, QUICK_SEEDS,
+                                              run_paper)
 from repro_torch.experiments.runner import (ExperimentSpec, TraceRef,
                                             run_experiment)
 from repro_torch.experiments.stats import (compare_completion_by_workload,
@@ -166,7 +175,7 @@ def _add_grid_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--serve", default=None,
                    help="co-located serving profile ("
                         + ", ".join(regimes_mod.SERVE_PROFILES)
-                        + ") or inline ServeConfig JSON")
+                        + ") or inline ServeConfig JSON (see `serve --list`)")
     p.add_argument("--cache", type=Path, default=DEFAULT_CACHE,
                    help=f"result cache directory (default: {DEFAULT_CACHE})")
     p.add_argument("--workers", type=int, default=0,
@@ -216,6 +225,121 @@ def cmd_import(args) -> int:
           f"{trace.duration():.0f}s, {trace.total_input_gb():.1f} GB total "
           f"({counts})")
     return 0
+
+
+def cmd_regimes(args) -> int:
+    presets = tuple(args.presets)
+    for p in presets:
+        if p not in PRESETS:
+            raise SystemExit(f"unknown preset {p!r}; available: "
+                             f"{', '.join(sorted(PRESETS))}")
+    shapes = tuple(args.shapes) if args.shapes is not None else (
+        regimes_mod.QUICK_SHAPES if args.quick else regimes_mod.FULL_SHAPES)
+    for s in shapes:
+        if s not in FLEET_SHAPES:
+            raise SystemExit(f"unknown shape {s!r}; available: "
+                             f"{', '.join(FLEET_SHAPES)}")
+    seeds = (_parse_seeds(args.seeds) if args.seeds is not None
+             else (regimes_mod.QUICK_SEEDS if args.quick
+                   else regimes_mod.FULL_SEEDS))
+    fabrics = tuple(args.fabrics) if args.fabrics is not None else (
+        regimes_mod.QUICK_FABRICS if args.quick
+        else regimes_mod.FULL_FABRICS)
+    for f in fabrics:
+        if f not in regimes_mod.FABRICS:
+            raise SystemExit(f"unknown fabric {f!r}; available: "
+                             f"{', '.join(regimes_mod.FABRICS)}")
+    replications = (tuple(args.replications)
+                    if args.replications is not None else (
+                        regimes_mod.QUICK_REPLICATIONS if args.quick
+                        else regimes_mod.FULL_REPLICATIONS))
+    faults = tuple(args.faults) if args.faults is not None else (
+        regimes_mod.QUICK_FAULTS if args.quick else regimes_mod.FULL_FAULTS)
+    for fp in faults:
+        if fp not in regimes_mod.FAULT_PROFILES:
+            raise SystemExit(f"unknown fault profile {fp!r}; available: "
+                             f"{', '.join(regimes_mod.FAULT_PROFILES)}")
+    swim = tuple(args.swim) if args.swim is not None else (
+        regimes_mod.QUICK_SWIM if args.quick else regimes_mod.FULL_SWIM)
+    for sw in swim:
+        if sw not in regimes_mod.SWIM_TRACES:
+            raise SystemExit(f"unknown SWIM trace {sw!r}; available: "
+                             f"{', '.join(regimes_mod.SWIM_TRACES)}")
+    serve = tuple(args.serve) if args.serve is not None else (
+        regimes_mod.QUICK_SERVE if args.quick else regimes_mod.FULL_SERVE)
+    for sp in serve:
+        if sp not in regimes_mod.SERVE_PROFILES:
+            raise SystemExit(f"unknown serve profile {sp!r}; available: "
+                             f"{', '.join(regimes_mod.SERVE_PROFILES)}")
+    report = regimes_mod.run_regimes(
+        presets, shapes, seeds, args.cache, fabrics=fabrics,
+        replications=replications, faults=faults, swim=swim,
+        workers=args.workers,
+        progress=print if args.verbose else None)
+    out = report.save_json(args.out)
+    print(report.format())
+    print(f"regime report -> {out}")
+    if args.markdown is not None:
+        md = Path(args.markdown)
+        md.parent.mkdir(parents=True, exist_ok=True)
+        _write_markdown_table(md, report.to_markdown())
+        print(f"markdown table -> {md}")
+    if serve:
+        serve_shapes = tuple(s for s in regimes_mod.SERVE_SHAPES
+                             if s in shapes) or (shapes[0],)
+        sreport = regimes_mod.run_serve_regimes(
+            serve, serve_shapes, seeds, args.cache, workers=args.workers,
+            progress=print if args.verbose else None)
+        sout = sreport.save_json(args.serve_out)
+        print(sreport.format())
+        print(f"serve report -> {sout}")
+        if args.markdown is not None:
+            _write_marked_section(Path(args.markdown),
+                                  sreport.to_markdown(),
+                                  SERVE_TABLE_START, SERVE_TABLE_END)
+            print(f"serve markdown table -> {args.markdown}")
+    return 0
+
+
+MD_TABLE_START = "<!-- regimes:table:start"
+MD_TABLE_END = "<!-- regimes:table:end -->"
+SERVE_TABLE_START = "<!-- serve:table:start"
+SERVE_TABLE_END = "<!-- serve:table:end -->"
+
+
+def _write_markdown_table(md: Path, table: str) -> None:
+    """Write the regime table to ``md``.  If the file already exists and
+    carries the ``regimes:table`` markers (the committed EXPERIMENTS.md
+    does), only the marked section is replaced — regenerating the atlas
+    must not clobber the surrounding narrative."""
+    if md.exists():
+        text = md.read_text()
+        start = text.find(MD_TABLE_START)
+        end = text.find(MD_TABLE_END)
+        if start != -1 and end != -1 and end > start:
+            head = text[:text.index("\n", start) + 1]   # keep the marker line
+            md.write_text(head + table + "\n" + text[end:])
+            return
+    md.write_text(table + "\n")
+
+
+def _write_marked_section(md: Path, table: str, start: str,
+                          end: str) -> None:
+    """Replace (or append) a marker-delimited table in ``md`` without
+    touching anything outside the markers — the serving table lives in
+    the same EXPERIMENTS.md as the regime table, so a missing-marker
+    fallback must append a new marked section, never clobber the file."""
+    if md.exists():
+        text = md.read_text()
+        s, e = text.find(start), text.find(end)
+        if s != -1 and e != -1 and e > s:
+            head = text[:text.index("\n", s) + 1]       # keep the marker line
+            md.write_text(head + table + "\n" + text[e:])
+            return
+        md.write_text(text.rstrip("\n")
+                      + f"\n\n{start} -->\n{table}\n{end}\n")
+        return
+    md.write_text(f"{start} -->\n{table}\n{end}\n")
 
 
 def _print_records(report) -> None:
@@ -384,6 +508,87 @@ def cmd_surrogate(args) -> int:
     return rc
 
 
+def cmd_explain(args) -> int:
+    from repro_torch.experiments.telemetry import explain_cell
+    if args.preset not in PRESETS:
+        raise SystemExit(f"unknown preset {args.preset!r}; available: "
+                         f"{', '.join(sorted(PRESETS))}")
+    if args.shape not in FLEET_SHAPES:
+        raise SystemExit(f"unknown shape {args.shape!r}; available: "
+                         f"{', '.join(FLEET_SHAPES)}")
+    if args.fabric not in regimes_mod.FABRICS:
+        raise SystemExit(f"unknown fabric {args.fabric!r}; available: "
+                         f"{', '.join(regimes_mod.FABRICS)}")
+    if args.faults not in regimes_mod.FAULT_PROFILES:
+        raise SystemExit(f"unknown fault profile {args.faults!r}; available: "
+                         f"{', '.join(regimes_mod.FAULT_PROFILES)}")
+    try:
+        text, _, _ = explain_cell(
+            args.preset, args.shape,
+            policy=args.policy, baseline=args.baseline, seed=args.seed,
+            fabric=args.fabric, replication=args.replication,
+            faults=args.faults, cache_dir=args.cache,
+            store=not args.no_store, export_dir=args.export)
+    except (PolicyError, ValueError) as e:
+        raise SystemExit(f"explain failed: {e}")
+    print(text)
+    return 0
+
+
+def cmd_faults(args) -> int:
+    if not args.list:
+        raise SystemExit("faults: nothing to do (did you mean --list?)")
+    print(f"{'profile':14s} {'enabled':8s} {'mtbf':>7s} {'mttr':>6s} "
+          f"{'rerepl':>7s} machine classes")
+    for name, fc in regimes_mod.FAULT_PROFILES.items():
+        classes = ", ".join(
+            f"{mc.name}(w={mc.weight}, speed={mc.speed}, "
+            f"mtbf_scale={mc.mtbf_scale})"
+            for mc in fc.machine_classes) or "-"
+        mtbf = f"{fc.crash_mtbf:.0f}" if fc.enabled else "-"
+        mttr = f"{fc.crash_mttr:.0f}" if fc.enabled else "-"
+        rer = f"{fc.rereplicate_after:.0f}" if fc.enabled else "-"
+        print(f"{name:14s} {str(fc.enabled):8s} {mtbf:>7s} {mttr:>6s} "
+              f"{rer:>7s} {classes}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    if not args.list:
+        raise SystemExit("serve: nothing to do (did you mean --list?)")
+    machines = args.machines
+    print(f"serving profiles at {machines} machines (replicas scale with "
+          f"the fleet; pass a name to --serve on run/compare/regimes):")
+    print(f"{'profile':16s} {'svc':5s} {'repl':>4s} {'vcpus':>5s} "
+          f"{'rps':>5s} {'diurnal':>7s} {'burst':>5s} {'svc_ms':>6s} "
+          f"{'slo_p99':>8s} {'bound':>6s}")
+    for name in regimes_mod.SERVE_PROFILES:
+        cfg = regimes_mod.serve_profile(name, machines)
+        for svc in cfg.services:
+            print(f"{name:16s} {svc.name:5s} {svc.replicas:4d} "
+                  f"{svc.vcpus:5d} {svc.base_rps:5.0f} "
+                  f"{svc.diurnal_amplitude:7.2f} {svc.burst_prob:5.2f} "
+                  f"{svc.service_time * 1000:6.0f} "
+                  f"{svc.slo_p99_ms:6.0f}ms {cfg.slo_violation_bound:6.2f}")
+    print("harvest policy: `harvest` (= adaptive + the ewma harvest "
+          "component); borrow under util EWMA "
+          "< harvest_headroom, preemptive return past harvest_return_util "
+          "or at the tick p99 SLO")
+    return 0
+
+
+def cmd_paper(args) -> int:
+    seeds = (QUICK_SEEDS if args.quick else FULL_SEEDS)
+    if args.seeds is not None:
+        seeds = _parse_seeds(args.seeds)
+    report = run_paper(seeds, cache_dir=args.cache, workers=args.workers,
+                       progress=print if args.verbose else None)
+    print(report.format())
+    if args.quick:
+        return 0                      # quick mode reports, full mode enforces
+    return 1 if report.failures() else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.experiments",
                                  description=__doc__,
@@ -436,6 +641,59 @@ def main(argv=None) -> int:
     c.add_argument("--verbose", action="store_true")
     c.set_defaults(func=cmd_compare)
 
+    rg = sub.add_parser("regimes",
+                        help="fleet-scale regime atlas: presets x cluster "
+                             "shapes (x fabrics) x {proposed, adaptive, "
+                             "fair, fifo}")
+    rg.add_argument("--quick", action="store_true",
+                    help=f"sub-grid: shapes {regimes_mod.QUICK_SHAPES}, "
+                         f"seeds {regimes_mod.QUICK_SEEDS} (cache-compatible "
+                         "with the full atlas)")
+    rg.add_argument("--presets", nargs="+",
+                    default=list(regimes_mod.REGIME_PRESETS))
+    rg.add_argument("--shapes", nargs="+", default=None,
+                    help="cluster shapes: " + ", ".join(FLEET_SHAPES))
+    rg.add_argument("--seeds", nargs="+", default=None,
+                    help="paired seeds; accepts `a:b` ranges")
+    rg.add_argument("--fabrics", nargs="*", default=None,
+                    help="extra remote-penalty fabrics swept on the first "
+                         "shape: " + ", ".join(regimes_mod.FULL_FABRICS)
+                         + f" (full default: {regimes_mod.FULL_FABRICS})")
+    rg.add_argument("--replications", nargs="*", type=int, default=None,
+                    help="extra HDFS replication factors swept on the first "
+                         f"shape (full default: "
+                         f"{regimes_mod.FULL_REPLICATIONS})")
+    rg.add_argument("--faults", nargs="*", default=None,
+                    help="fault profiles swept over the fault shapes "
+                         f"({', '.join(regimes_mod.FAULT_SHAPES)}): "
+                         + ", ".join(p for p in regimes_mod.FAULT_PROFILES
+                                     if p != regimes_mod.BASE_FAULTS)
+                         + f" (full default: {regimes_mod.FULL_FAULTS})")
+    rg.add_argument("--swim", nargs="*", default=None,
+                    help="committed SWIM trace columns on the first shape: "
+                         + ", ".join(regimes_mod.SWIM_TRACES)
+                         + f" (full default: {regimes_mod.FULL_SWIM})")
+    rg.add_argument("--serve", nargs="*", default=None,
+                    help="serving profiles swept over the serve shapes "
+                         f"({', '.join(regimes_mod.SERVE_SHAPES)}), pairing "
+                         "harvest vs adaptive: "
+                         + ", ".join(regimes_mod.SERVE_PROFILES)
+                         + " (full default: all; quick default: none)")
+    rg.add_argument("--serve-out", type=Path,
+                    default=Path("serve_regimes.json"),
+                    help="machine-readable serving report (default: "
+                         "serve_regimes.json)")
+    rg.add_argument("--cache", type=Path, default=DEFAULT_CACHE)
+    rg.add_argument("--workers", type=int, default=0)
+    rg.add_argument("--out", type=Path, default=Path("regimes.json"),
+                    help="machine-readable regime report (default: "
+                         "regimes.json)")
+    rg.add_argument("--markdown", type=Path, default=None,
+                    help="also write the markdown regime table here "
+                         "(e.g. EXPERIMENTS.md)")
+    rg.add_argument("--verbose", action="store_true")
+    rg.set_defaults(func=cmd_regimes)
+
     sg = sub.add_parser(
         "surrogate",
         help="batched fluid-engine sweep over calibrated atlas cells, "
@@ -463,6 +721,50 @@ def main(argv=None) -> int:
     sg.add_argument("--verbose", action="store_true")
     sg.set_defaults(func=cmd_surrogate)
 
+    ex = sub.add_parser("explain",
+                        help="replay one atlas cell with tracing on and "
+                             "attribute its scheduling decisions")
+    ex.add_argument("preset", help="regime preset: "
+                    + ", ".join(sorted(PRESETS)))
+    ex.add_argument("shape", help="cluster shape: " + ", ".join(FLEET_SHAPES))
+    ex.add_argument("--policy", default="adaptive",
+                    help="policy to explain (default: adaptive)")
+    ex.add_argument("--baseline", default="proposed",
+                    help="comparison policy run on identical inputs "
+                         "(default: proposed)")
+    ex.add_argument("--seed", type=int, default=0)
+    ex.add_argument("--fabric", default="1GbE",
+                    help="network fabric: " + ", ".join(regimes_mod.FABRICS))
+    ex.add_argument("--replication", type=int, default=1)
+    ex.add_argument("--faults", default="none",
+                    help="fault profile: "
+                         + ", ".join(regimes_mod.FAULT_PROFILES))
+    ex.add_argument("--cache", type=Path, default=DEFAULT_CACHE,
+                    help="warehouse dir; the policy's folded summary is "
+                         "stored next to the cell's RunRecord "
+                         f"(default: {DEFAULT_CACHE})")
+    ex.add_argument("--export", type=Path, default=None,
+                    help="also write trace.jsonl + trace.chrome.json "
+                         "(Perfetto) for both runs into this directory")
+    ex.add_argument("--no-store", action="store_true",
+                    help="skip writing the summary into the warehouse")
+    ex.set_defaults(func=cmd_explain)
+
+    fl = sub.add_parser("faults",
+                        help="fault-injection profiles accepted by --faults")
+    fl.add_argument("--list", action="store_true",
+                    help="list the named profiles and their knobs")
+    fl.set_defaults(func=cmd_faults)
+
+    sv = sub.add_parser("serve",
+                        help="serving profiles accepted by --serve")
+    sv.add_argument("--list", action="store_true",
+                    help="list the named profiles and their knobs")
+    sv.add_argument("--machines", type=int, default=20,
+                    help="fleet size to scale replica counts for "
+                         "(default: 20)")
+    sv.set_defaults(func=cmd_serve)
+
     pl = sub.add_parser("policies",
                         help="list registered scheduler policies "
                              "(repro_torch.core.policies)")
@@ -473,9 +775,20 @@ def main(argv=None) -> int:
                     help="include policy descriptions")
     pl.set_defaults(func=cmd_policies)
 
+    p = sub.add_parser("paper", help="reproduce the paper's §5 evaluation")
+    p.add_argument("--quick", action="store_true",
+                   help=f"{len(QUICK_SEEDS)} seeds, report only (no claim "
+                        "enforcement)")
+    p.add_argument("--seeds", nargs="+", default=None,
+                   help="override the seed list; accepts `a:b` ranges")
+    p.add_argument("--cache", type=Path, default=None,
+                   help="cache directory (default: temp dir)")
+    p.add_argument("--workers", type=int, default=0)
+    p.add_argument("--verbose", action="store_true")
+    p.set_defaults(func=cmd_paper)
+
     args = ap.parse_args(argv)
     return args.func(args)
-
 
 
 if __name__ == "__main__":

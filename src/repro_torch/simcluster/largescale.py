@@ -1,8 +1,8 @@
 """Large-fleet scenario suite — clusters far beyond the paper's 20 machines.
 
 This is the port's own copy of the JAX package's ``simcluster/largescale.py``
-(pure Python).  The frozen seed engine (``engine="legacy"``) is not ported:
-asking for it raises ``PolicyError``.
+(pure Python).  ``engine="legacy"`` runs the port's copy of the frozen seed
+engine (``repro_torch.simcluster._legacy``).
 
 The paper evaluates on 20 machines × 2 VMs and ≤ 25 jobs.  The ROADMAP
 north-star (and the virtual-cluster scheduler evaluations in
@@ -205,8 +205,7 @@ def run_scenario(name: str, *, scheduler="proposed", seed: int = 0,
     ``tracing`` enables the decision-trace bus on the indexed engine: pass a
     ``TraceConfig`` (or ``True`` for the default-on config); the result's
     ``trace`` attribute then carries the bus.  The legacy engine has no bus
-    — tracing there is rejected rather than silently dropped; without
-    tracing, ``engine="legacy"`` raises ``PolicyError`` (not ported)."""
+    — tracing there is rejected rather than silently dropped."""
     import dataclasses
 
     from repro_torch.core.policies import build_policy
@@ -221,6 +220,13 @@ def run_scenario(name: str, *, scheduler="proposed", seed: int = 0,
         spec = dataclasses.replace(spec, tracing=tracing)
     jobs = sc.jobs(spec, seed=seed)
     sched = build_policy(scheduler, spec, legacy=(engine == "legacy"))
-    from repro_torch.simcluster.sim import ClusterSim
-    sim = ClusterSim(spec, sched, seed=seed)
+    if engine == "legacy":
+        if spec.serve.active:
+            raise ValueError("the legacy engine has no serving layer; "
+                             "serving scenarios require engine='indexed'")
+        from repro_torch.simcluster._legacy import LegacyClusterSim
+        sim = LegacyClusterSim(spec, sched, seed=seed)
+    else:
+        from repro_torch.simcluster.sim import ClusterSim
+        sim = ClusterSim(spec, sched, seed=seed)
     return sim.run(jobs, until=until)

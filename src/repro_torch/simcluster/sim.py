@@ -16,8 +16,8 @@ For ``CompletionTimeScheduler`` the per-VM map capacity follows the
 reconfigurator's live vCPU counts (Algorithm 1); baselines keep the static
 slot configuration — exactly the comparison of paper §5.
 
-Engine notes (vs. the frozen seed engine the JAX package keeps in
-``simcluster/_legacy.py``, not ported):
+Engine notes (vs. the frozen seed engine in
+``repro_torch.simcluster._legacy``):
 
 * **Speculation is incremental.**  The seed rescanned every running map of
   every job on every heartbeat.  Here each job keeps an insertion-ordered

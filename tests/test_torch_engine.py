@@ -343,7 +343,7 @@ def test_completion_time_and_mean_equal_the_original():
 
 
 # ---------------------------------------------------------------------------
-# the registry's builders, the scenarios, what is not ported
+# the registry's builders (the frozen seed engine's too), the scenarios
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("policy", POLICIES)
@@ -361,14 +361,34 @@ def test_built_schedulers_are_the_original_classes(policy):
     assert b.spec.to_dict() == a.spec.to_dict()
 
 
-def test_legacy_engine_is_not_ported():
-    cluster = ttypes.ClusterSpec(num_machines=2, vms_per_machine=2)
-    with pytest.raises(tpol.PolicyError, match="M10c"):
-        tpol.PolicySpec("proposed").build(cluster, legacy=True)
-    with pytest.raises(tpol.PolicyError, match="M10c"):
-        tpol.build_policy("fair", cluster, legacy=True)
-    with pytest.raises(tpol.PolicyError, match="M10c"):
-        tlarge.run_scenario("burst_idle_gap", engine="legacy")
+@pytest.mark.parametrize("policy", POLICIES)
+def test_legacy_builders_are_the_original_classes(policy):
+    """``build(legacy=True)`` builds the frozen seed engine's counterpart of
+    proposed, fair, fifo and delay (the port's own ``Legacy*`` classes, the
+    original's names and knobs) and refuses every other policy with the
+    original's message."""
+    cluster_j = jtypes.ClusterSpec(num_machines=4, vms_per_machine=2)
+    cluster_t = ttypes.ClusterSpec(num_machines=4, vms_per_machine=2)
+    if jpol.get_policy(policy).legacy_builder is None:
+        assert tpol.get_policy(policy).legacy_builder is None
+        msgs = []
+        for pol, cluster in ((jpol, cluster_j), (tpol, cluster_t)):
+            with pytest.raises(pol.PolicyError) as e:
+                pol.PolicySpec(policy).build(cluster, legacy=True)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1] == \
+            f"policy {policy!r} has no legacy (seed-engine) counterpart"
+        return
+    assert policy in ("proposed", "fair", "fifo", "delay")
+    a = jpol.PolicySpec(policy).build(cluster_j, legacy=True)
+    b = tpol.build_policy(policy, cluster_t, legacy=True)
+    assert type(b).__name__ == type(a).__name__ and type(b).__name__.startswith("Legacy")
+    assert type(b).__module__ == "repro_torch.simcluster._legacy"
+    assert b.name == a.name == policy
+    for attr in ("park_depth", "locality_delay", "uses_reconfig"):
+        assert getattr(a, attr, None) == getattr(b, attr, None), attr
+    if policy == "proposed":
+        assert b.reconfig.max_wait == a.reconfig.max_wait == 30.0
 
 
 def test_smoke_policies_run_clean():
