@@ -45,6 +45,15 @@ print the report a CPU test pins, the atlas's quick sub-grid runs and is then
 served from its cache, `explain` exports its traces, and the two event
 engines (the indexed one and the frozen seed engine) are timed side by side
 and must agree on every decision.
+The multi-rank layer runs on one rank of NCCL and a (data=1, model=1) mesh:
+tinyllama-1.1b trains at full width and depth through the launcher's `train`
+with `data_axis=1` (DTensor params, gradients redistributed onto them) in
+turns with the plain one-device path, whose losses it must give (step 1
+within 1e-6, step 2 within 5e-3) while launching the attention kernels
+forward and backward; llama3.2-3b's attention runs through `attn_sm`'s row
+layout on the forward kernel against the heads layout; `pipeline_apply`
+runs one stage over tinyllama-1.1b's 22 layers against `reference_apply`;
+and `compressed_psum` quantizes its full fp32 gradient tree to int8.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  Everything printed also goes to `chiprun_out/chip_smoke.log`.  The
 last line is `{"ok": true, "device": {...}}`.  Without a CUDA device it
@@ -326,6 +335,24 @@ ATLAS_SERVE_CELLS = 8
 EXPLAIN_CELL = ("heavy_tail", "20x2")
 LOG = ROOT / "chiprun_out" / "chip_smoke.log"
 
+
+# The parallel phase (M12): a one-rank NCCL group and a (data=1, model=1)
+# mesh.  PARALLEL_ARCH trains at full width and depth, bf16, batch 8 x 1024,
+# through the launcher's `train` on the mesh path (DTensor params,
+# redistributed grads) and on the plain one-device path, in turns: a warm-up
+# step and PARALLEL_STEPS - 1 timed ones each.  llama3.2-3b's attention runs
+# through attn_sm's row layout (8 x 24 rows, KV repeated) against K1 on the
+# heads layout; the pipeline runs one stage over PARALLEL_ARCH's 22 layers,
+# PARALLEL_MICRO microbatches of 1 x 1024; the int8 compression runs over
+# PARALLEL_ARCH's full fp32 gradient tree
+PARALLEL_ARCH = "tinyllama-1.1b"
+PARALLEL_STEPS = 3
+PARALLEL_TURNS = 2
+PARALLEL_LR = 1e-5
+PARALLEL_STEP1_TOL = 1e-6
+PARALLEL_STEP2_TOL = 5e-3
+PARALLEL_ATTN_SHAPE = (8, 24, 8, 1024, 1024, 128)
+PARALLEL_MICRO = 8
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -2611,6 +2638,185 @@ def phase_experiments(smi_line: str) -> dict:
     return result
 
 
+def phase_parallel() -> dict:
+    """The multi-rank layer on one rank of NCCL (see PARALLEL_ARCH): (a) the
+    mesh train step against the plain one, in turns, counting the kernels of
+    the mesh runs (K1 and K1b must launch, each as `expected_launches`
+    says); (b) attn_sm's row layout against K1 on the heads layout; (c)
+    `pipeline_apply` with one stage against `reference_apply`; (d)
+    `compressed_psum` over a full fp32 gradient tree, every element within
+    half its block's scale."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import train
+    from repro_torch.models import attn_sm, transformer
+    from repro_torch.models.common import get_model, tree_leaves
+    from repro_torch.models.layers import attention
+    from repro_torch.checkpoint.layout import stack_layers
+    from repro_torch.parallel import activations as A
+    from repro_torch.parallel.compression import (_blockify, compressed_psum,
+                                                  quantize_int8, wire_bytes_ratio)
+    from repro_torch.parallel.pipeline import pipeline_apply, reference_apply
+    from repro_torch.parallel.sharding import PartitionSpec as P, shard_batch
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="pg-", dir=ROOT / "build")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    result = {"world_size": 1, "backend": "nccl", "mesh": {"data": 1, "model": 1}}
+    try:
+        # (a) the launcher's train, mesh and plain, in turns
+        cfg = get_config(PARALLEL_ARCH)
+        runs = {"mesh": [], "plain": []}
+        counts = cuda_kernels = None
+        for _ in range(PARALLEL_TURNS):
+            for path in ("plain", "mesh"):
+                release()
+                reset_op_counts()
+                before = cuda_kernel_counts()
+                out = train(cfg, steps=PARALLEL_STEPS, seq=PROMPT_LEN, batch=BATCH,
+                            lr=PARALLEL_LR, device="cuda",
+                            data_axis=1 if path == "mesh" else None)
+                if path == "mesh":
+                    counts, cuda_kernels = op_counts(), cuda_kernels_since(before)
+                    on_mesh = type(tree_leaves(out["params"])[0]).__name__
+                runs[path].append({"losses": out["losses"],
+                                   "step_ms": [t * 1e3 for t in out["step_s"][1:]],
+                                   "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+                del out
+        expected, want = expected_launches(cfg, PARALLEL_STEPS)
+        if counts != expected or cuda_kernels != want or on_mesh != "DTensor":
+            raise AssertionError(f"the mesh run launched {counts} ({cuda_kernels}), "
+                                 f"expected {expected} and {want}; params {on_mesh}")
+        plain, mesh = runs["plain"][0]["losses"], runs["mesh"][0]["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(mesh, plain)]
+        ms = {k: float(np.median([t for r in v for t in r["step_ms"]]))
+              for k, v in runs.items()}
+        result["train"] = {
+            "arch": PARALLEL_ARCH, "layers": cfg.num_layers, "dtype": "bfloat16",
+            "batch": BATCH, "seq": PROMPT_LEN, "steps": PARALLEL_STEPS,
+            "turns": PARALLEL_TURNS, "lr": PARALLEL_LR,
+            "losses_mesh": mesh, "losses_plain": plain,
+            "step1_rel": rel[0], "step2_rel": rel[1],
+            "ms_per_step_mesh": ms["mesh"], "ms_per_step_plain": ms["plain"],
+            "mesh_over_plain": ms["mesh"] / ms["plain"],
+            "step_ms_mesh": [r["step_ms"] for r in runs["mesh"]],
+            "step_ms_plain": [r["step_ms"] for r in runs["plain"]],
+            "peak_memory_bytes_mesh": max(r["peak_memory_bytes"] for r in runs["mesh"]),
+            "peak_memory_bytes_plain": max(r["peak_memory_bytes"] for r in runs["plain"]),
+            "launches_by_kernel": counts, "cuda_kernel_launches": cuda_kernels}
+        emit("parallel_train", **result["train"])
+        if rel[0] >= PARALLEL_STEP1_TOL or rel[1] >= PARALLEL_STEP2_TOL or \
+                any(not math.isfinite(x) for x in mesh + plain):
+            raise AssertionError(f"mesh losses {mesh} against plain {plain}")
+
+        # (b) attn_sm's row layout on K1 against K1 on the heads layout
+        release()
+        mesh11 = make_test_mesh(1, 1)
+        A.set_activation_sharding(dp="data", dp_size=1, tp="model", tp_size=1,
+                                  mesh=mesh11)
+        B, Hq, Hkv, S, _, D = PARALLEL_ATTN_SHAPE
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        q, k, v = (torch.randn((B, h, S, D), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        dq, dk, dv = (shard_batch(x, P("data"), mesh11) for x in (q, k, v))
+        reset_op_counts()
+        rows = attn_sm.flash_attention_shard_map(dq, dk, dv, True, None).to_local()
+        launches = op_counts()["flash_attention_fwd"]
+        heads = attention(get_config("llama3.2-3b"), q, k, v, causal=True)
+        err = (rows.float() - heads.float()).abs().max().item()
+        scale = heads.float().abs().max().item()
+        rows_ms = time_ms(lambda: attn_sm.flash_attention_shard_map(
+            dq, dk, dv, True, None), 10)
+        heads_ms = time_ms(lambda: attention(get_config("llama3.2-3b"), q, k, v,
+                                             causal=True), 10)
+        result["attn_sm"] = {"shape": list(PARALLEL_ATTN_SHAPE), "rows": B * Hq,
+                             "max_abs_err": err, "rel_err": err / scale,
+                             "bitwise_equal": bool(torch.equal(rows, heads)),
+                             "k1_launches": launches, "rows_ms": rows_ms,
+                             "heads_ms": heads_ms}
+        emit("parallel_attn_sm", **result["attn_sm"])
+        A.clear()
+        if err / scale >= TOL[torch.bfloat16] or launches != 1:
+            raise AssertionError(f"attn_sm rows against heads: {result['attn_sm']}")
+        del q, k, v, dq, dk, dv, rows, heads
+
+        # (c) one pipeline stage over every layer of PARALLEL_ARCH
+        release()
+        params = get_model(cfg).init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                     "cuda")
+        stacked = stack_layers(cfg, params)["layers"]
+        del params
+        x = torch.randn((PARALLEL_MICRO, 1, PROMPT_LEN, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.compute_dtype)
+
+        def layer_fn(lp, h):
+            return transformer.layer_fwd(cfg, lp, h, None)[0]
+
+        with torch.no_grad():
+            reset_op_counts()
+            t0 = time.perf_counter()
+            piped = pipeline_apply(layer_fn, stacked, x, group=dist.group.WORLD)
+            torch.cuda.synchronize()
+            pipe_s = time.perf_counter() - t0
+            launches = op_counts()["flash_attention_fwd"]
+            t0 = time.perf_counter()
+            ref = reference_apply(layer_fn, stacked, x)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+        err = (piped.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        result["pipeline"] = {"stages": 1, "layers": cfg.num_layers,
+                              "microbatches": PARALLEL_MICRO, "microbatch": [1, PROMPT_LEN],
+                              "max_abs_err": err, "rel_err": err / scale,
+                              "k1_launches": launches, "pipeline_s": pipe_s,
+                              "reference_s": ref_s}
+        emit("parallel_pipeline", **result["pipeline"])
+        if err / scale >= TOL[torch.bfloat16] or \
+                launches != cfg.num_layers * PARALLEL_MICRO:
+            raise AssertionError(f"pipeline against reference: {result['pipeline']}")
+        del stacked, x, piped, ref
+
+        # (d) int8 compression of a full fp32 gradient tree
+        release()
+        params = get_model(cfg).init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                     "cuda")
+        _, grads = loss_and_grads(cfg, params, _train_batch(cfg))
+        del params
+        grads = [g.float() for g in grads]
+        n_bytes = sum(g.numel() * 4 for g in grads)
+        worst = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in grads:
+            summed, residual = compressed_psum(g, dist.group.WORLD,
+                                               torch.zeros_like(g))
+            blocks, _, pad = _blockify(g)
+            _, scale = quantize_int8(g)
+            err = _blockify(summed - g)[0].abs()
+            worst = max(worst, (err / (0.5 * scale[:, None])).max().item())
+            del summed, residual, blocks, err
+        torch.cuda.synchronize()
+        comp_s = time.perf_counter() - t0
+        result["compression"] = {"leaves": len(grads), "fp32_bytes": n_bytes,
+                                 "wire_bytes_ratio": wire_bytes_ratio(),
+                                 "worst_err_over_half_scale": worst,
+                                 "seconds": comp_s}
+        emit("parallel_compression", **result["compression"])
+        if worst > 1.0 + 1e-5:
+            raise AssertionError(f"an element off by more than half its block's "
+                                 f"scale: {worst}")
+        del grads
+    finally:
+        A.clear()
+        dist.destroy_process_group()
+    result["seconds"] = time.perf_counter() - t_phase
+    emit("parallel", seconds=result["seconds"])
+    return result
+
+
 class Tee:
     """A stream that also writes everything to the log."""
 
@@ -2678,6 +2884,8 @@ def main() -> int:
             phase_train_parity_bf16(arch)
     release()
     phase_checkpoint()
+    release()
+    par = phase_parallel()
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
@@ -2782,6 +2990,11 @@ def main() -> int:
         if name == "flash_attention_fwd":
             rows[-1]["later_families"]["mixtral-8x22b window"]["launches"] = \
                 window["launches_by_kernel"]["flash_attention_fwd"]
+        if name.startswith("flash_attention"):
+            # the parallel phase's mesh train runs (counts set to 0 before
+            # each, these from the last)
+            rows[-1]["launches_parallel_mesh_train"] = \
+                par["train"]["launches_by_kernel"][name]
     # the fluid surrogate's scan (jnp in the JAX package, a kernel here):
     # launches on the bench grid (the rule's variant, fluid_scan_warp, by the
     # C count); ms / plain_ms / bound_ms on one 64-cell sub-batch of it, with

@@ -28,6 +28,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF as _NEG_INF
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.activations import (embedding, gather_last,
+                                              is_dtensor, shard_embed_out,
+                                              shard_logits)
+from repro_torch.parallel.sharding import PartitionSpec
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -188,22 +192,82 @@ def attention(
 
     The flash-attention kernel takes every call with more than one query,
     default positions, no softcap and no ``kv_len``; the decode step and the
-    rest go through the dense path."""
-    if cfg.attn_impl not in ("kernel", "dense"):
+    rest go through the dense path.  ``attn_impl`` ``"bh_flat"`` is
+    ``"kernel"`` with the flattened (batch·head) layout on a mesh.
+
+    On a mesh (DTensor q, k, v) the kernel runs on each rank's heads
+    (``shard_attn_qkv``: batch over dp, heads over tp when both head counts
+    divide it).  When they do not and ``Sq == Skv``, two tensor-parallel
+    branches replace that: ``bh_flat`` (batch·head rows jointly over dp×tp)
+    and ``attn_row_parallel`` (``attn_sm``: the local batch's rows padded and
+    cut over tp).  The JAX package takes these branches only above 2048
+    queries, where its own dispatch leaves its dense path; the port's kernel
+    path starts at two queries, and so do they."""
+    if cfg.attn_impl not in ("kernel", "dense", "bh_flat"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     Sq, Skv = q.shape[2], k.shape[2]
-    if (cfg.attn_impl == "kernel" and Sq > 1 and q_positions is None
+    if (cfg.attn_impl != "dense" and Sq > 1 and q_positions is None
             and kv_positions is None and cfg.attn_logit_softcap is None
             and kv_len is None):
+        if is_dtensor(q):
+            return _mesh_flash_attention(cfg, q, k, v, causal, window)
         return flash_attention(q, k, v, causal=causal, window=window)
     if q_positions is None:
         q_positions = torch.arange(Sq, device=q.device)
     if kv_positions is None:
         kv_positions = torch.arange(Skv, device=q.device)
-    return attention_dense(
-        q, k, v, causal=causal, q_positions=q_positions,
-        kv_positions=kv_positions, window=window,
-        softcap=cfg.attn_logit_softcap, kv_len=kv_len)
+
+    def dense(ql, kl, vl):
+        return attention_dense(
+            ql, kl, vl, causal=causal, q_positions=q_positions,
+            kv_positions=kv_positions, window=window,
+            softcap=cfg.attn_logit_softcap, kv_len=kv_len)
+
+    if is_dtensor(q):
+        return _on_local_heads(dense, q, k, v)
+    return dense(q, k, v)
+
+
+def _on_local_heads(fn: Callable, q, k, v):
+    """``fn`` (an attention core of plain tensors) on each rank's batch rows
+    and heads of DTensors q, k, v (``shard_attn_qkv``'s layout)."""
+    from repro_torch.parallel import activations as A
+    q, k, v = A.shard_attn_qkv(q, k, v)
+    spec = tuple(q.placements)
+    return A.local_region(fn, (q, k, v), (spec,) * 3, spec)
+
+
+def _mesh_flash_attention(cfg: ModelConfig, q, k, v, causal: bool,
+                          window: Optional[int]):
+    """The kernel path of ``attention`` on DTensors (see there)."""
+    from repro_torch.parallel import activations as A
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    tp_size = A._STATE["tp_size"]
+    heads_misaligned = (A._STATE["tp"] is not None and tp_size > 1
+                        and (Hq % tp_size or Hkv % tp_size))
+
+    def kernel(ql, kl, vl):
+        return flash_attention(ql, kl, vl, causal=causal, window=window)
+
+    if (heads_misaligned and Sq == Skv and cfg.attn_impl == "bh_flat"
+            and A.bh_flat_entry(B, Hq) is not None):
+        # the JAX package's record of a refuted layout, kept opt-in: the
+        # (batch·head) rows, KV repeated to the query heads, sharded jointly
+        # over dp×tp, each rank's rows through the kernel
+        rep = Hq // Hkv
+        kr = torch.repeat_interleave(k, rep, dim=1).reshape(B * Hq, 1, Skv, D)
+        vr = torch.repeat_interleave(v, rep, dim=1).reshape(B * Hq, 1, Skv, v.shape[-1])
+        qf = A.shard_bh(q.reshape(B * Hq, 1, Sq, D))
+        kr, vr = A.shard_bh(kr), A.shard_bh(vr)
+        spec = PartitionSpec(A.bh_flat_entry(B, Hq))
+        out = A.local_region(kernel, (qf, kr, vr), (spec,) * 3, spec)
+        return out.reshape(B, Hq, Sq, v.shape[-1])
+    if heads_misaligned and Sq == Skv and cfg.attn_row_parallel:
+        from repro_torch.models import attn_sm
+        if attn_sm.applicable(B, Hq, Sq, Skv):
+            return attn_sm.flash_attention_shard_map(q, k, v, causal, window)
+    return _on_local_heads(kernel, q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -369,12 +433,14 @@ def init_embed(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 
 
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p["tok"]):        # a mesh: the vocab-parallel lookup
+        return shard_embed_out(embedding(p["tok"], tokens).to(cfg.compute_dtype))
     return p["tok"][tokens].to(cfg.compute_dtype)
 
 
 def unembed(cfg: ModelConfig, p_embed: dict, p_head, x: torch.Tensor) -> torch.Tensor:
     w = p_embed["tok"].T if (cfg.tie_embeddings or p_head is None) else p_head
-    logits = x @ w.to(x.dtype)
+    logits = shard_logits(x @ w.to(x.dtype))
     return logits.float() if cfg.logits_fp32 else logits
 
 
@@ -383,7 +449,10 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Cross-entropy with z-loss; labels == -100 are masked.  fp32 accumulation."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    if is_dtensor(logits):      # a mesh's logits: vocab may be over tp
+        gold = gather_last(logits, labels.clamp_min(0))
+    else:
+        gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
     nll = lse - gold
     zl = torch.square(lse)
     mask = (labels >= 0).float()

@@ -24,6 +24,7 @@ from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, register, resolve_device
+from repro_torch.parallel.activations import is_dtensor, shard_acts
 
 # the plain chunked scan: (y [B,S,H,P], final_state [B,H,P,N] fp32)
 ssd_chunked = ssd_chunked_ref
@@ -141,6 +142,8 @@ def mamba_block_fwd(cfg: ModelConfig, p: Dict, u: torch.Tensor,
         if S != 1:
             raise ValueError(f"decode takes one token at a time, got {S}")
         y, hT = ssd_decode_step(xh, dt, A, Bh, Ch, state["ssm"])
+    elif cfg.attn_impl == "kernel" and is_dtensor(xh):
+        y, hT = _mesh_ssd(cfg, xh, dt, A, Bh, Ch)
     elif cfg.attn_impl == "kernel":
         y, hT = ssd(xh, dt, A, Bh, Ch, chunk=cfg.ssm_chunk, return_state=True)
     else:
@@ -152,6 +155,31 @@ def mamba_block_fwd(cfg: ModelConfig, p: Dict, u: torch.Tensor,
     return out, {"ssm": hT, "conv_x": cx, "conv_B": cB, "conv_C": cC}
 
 
+def _mesh_ssd(cfg: ModelConfig, x, dt, A, B_, C):
+    """The SSD kernel on DTensors: each rank scans its batch rows (over dp)
+    and, when the heads divide tp and the groups either are one or divide
+    tp too, its heads (over tp).  One group shared by every head stays whole
+    on each tp rank, and its gradient there is a partial sum over tp."""
+    from repro_torch.parallel import activations as A_
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    H, G = x.shape[2], B_.shape[2]
+    tp, tps = A_._STATE["tp"], A_._STATE["tp_size"]
+    dp = A_._entry("dp", x.shape[0])
+    heads = tp is not None and tps > 1 and H % tps == 0 and (G == 1 or G % tps == 0)
+    th = tp if heads else None
+    tg = tp if heads and G > 1 else None
+    x_s, dt_s, a_s, bc_s = P(dp, None, th), P(dp, None, th), P(th), P(dp, None, tg)
+    bc_g = A_.with_partial(bc_s, tp) if heads and G == 1 else bc_s
+
+    def scan(xl, dtl, al, bl, cl):
+        return ssd(xl, dtl, al, bl, cl, chunk=cfg.ssm_chunk, return_state=True)
+
+    return A_.local_region(scan, (x, dt, A, B_, C),
+                           (x_s, dt_s, a_s, bc_s, bc_s),
+                           (x_s, P(dp, th)),
+                           grad_specs=(None, None, None, bc_g, bc_g))
+
+
 def init_mamba_layer(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
     return {"ln": L.init_norm(cfg, cfg.d_model, device),
             "mamba": init_mamba_block(cfg, generator, device)}
@@ -160,7 +188,7 @@ def init_mamba_layer(cfg: ModelConfig, generator: torch.Generator, device) -> Di
 def mamba_layer_fwd(cfg: ModelConfig, lp: Dict, x: torch.Tensor, state=None):
     h = L.apply_norm(cfg, lp["ln"], x)
     y, new_state = mamba_block_fwd(cfg, lp["mamba"], h, state)
-    return x + y, new_state
+    return shard_acts(x + y), new_state
 
 
 @register("ssm")

@@ -22,10 +22,11 @@ DeepSeek-V2-Lite (MLA), on one device.
   attention passes ``None`` positions, so its prefill and training take the
   kernel.
 
-The shard_map path of the reference (``_moe_ffn_shard_map``) needs a mesh
-and is not here.  Params are plain dictionaries; ``params["layers"]`` is a
-list with one MoE layer each, ``params["dense_layers"]`` (DeepSeek's first
-layers, with a plain FFN) a list too, as in the reference.
+On a device mesh the routed experts run ``_moe_ffn_shard_map``, the
+reference's ``shard_map`` layer as an explicit local region.  Params are
+plain dictionaries; ``params["layers"]`` is a list with one MoE layer each,
+``params["dense_layers"]`` (DeepSeek's first layers, with a plain FFN) a list
+too, as in the reference.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, register, resolve_device
+from repro_torch.parallel.activations import shard_acts
 
 # ---------------------------------------------------------------------------
 # Routed expert FFN
@@ -170,16 +172,107 @@ def _dispatch(cfg: ModelConfig, p: Dict, xg: torch.Tensor) -> Tuple[torch.Tensor
     return out, E * torch.sum(frac_tokens * frac_probs, dim=-1)
 
 
+def _moe_ffn_shard_map(cfg: ModelConfig, p: Dict, x, return_kept: bool = False):
+    """The MoE layer on a mesh, every step explicit and local (the JAX
+    package's ``shard_map`` layer), in ``activations.local_region``:
+
+      * tokens stay on their data shard (the paper's locality principle);
+      * expert weights: FSDP-sharded over data -> one all-gather a layer
+        (backward: a reduce-scatter of the weight grads), tp-sharded on
+        d_ff so the expert products are column-parallel;
+      * one sum over ``model`` after the down-projection, whose backward is
+        the identity (``collectives.psum_id_bwd``);
+      * dispatch (sort/scatter) runs on local tokens only.
+
+    Capacity pooling must not depend on the layout: the one-device path cuts
+    the token stream into ``cfg.moe_dispatch_groups`` contiguous capacity
+    groups, and each data shard holds a contiguous slice of that stream, so
+    its slice is cut into ``moe_dispatch_groups / dp`` groups: the same
+    boundaries, the same drops.
+
+    Gradients: the dispatch path uses a tp rank's part of d_ff, so x's
+    gradient through it is a partial sum over tp; the router path is the
+    same on every tp rank, so x's gradient through it is whole there.  x
+    enters the region twice, once with each.  With ``return_kept`` a third
+    output, [B, S, k] bool, marks the choices that capacity kept."""
+    from repro_torch.parallel import activations as A
+    from repro_torch.parallel.collectives import fsdp_gather, psum_id_bwd
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    st = A._STATE
+    mesh, dp, tp, fsdp = st["mesh"], st["dp"], st["tp"], st["fsdp"]
+    B, S, d = x.shape
+    G_l = 1
+    if cfg.moe_dispatch_groups % st["dp_size"] == 0:
+        G_l = cfg.moe_dispatch_groups // st["dp_size"]
+    tp_on = st["tp_size"] > 1
+    dp_axes = dp if isinstance(dp, tuple) else (dp,)
+
+    def body(xe, xr, router, wg, wu, wd):
+        # xe, xr: [B_l, S, d]; wg/wu: [E, d(/fsdp), f_l]; wd: [E, f_l, d(/fsdp)]
+        if fsdp is not None:
+            wg = fsdp_gather(wg, 1, mesh, fsdp)
+            wu = fsdp_gather(wu, 1, mesh, fsdp)
+            wd = fsdp_gather(wd, 2, mesh, fsdp)
+        T_l = xe.shape[0] * xe.shape[1]
+        g = G_l
+        while T_l % g:
+            g -= 1
+        xg_e = xe.reshape(g, T_l // g, d)
+        xg_r = xr.reshape(g, T_l // g, d)
+        probs, idx, gate = route(cfg, {"router": router}, xg_r)
+        buf, rows = dispatch(cfg, xg_e, idx, capacity(cfg, T_l // g))
+        y = expert_products({"w_gate": wg, "w_up": wu, "w_down": wd}, buf)
+        if tp_on:
+            y = psum_id_bwd(y, mesh, tp)
+        out = combine(y, rows, gate)
+        E = cfg.n_experts
+        frac_tokens = F.one_hot(idx, E).float().mean(dim=(1, 2))
+        aux = (E * torch.sum(frac_tokens * probs.mean(dim=1), dim=-1)).mean()
+        aux = psum_id_bwd(aux, mesh, dp) / st["dp_size"]
+        outs = (out.reshape(xe.shape), aux)
+        if return_kept:
+            dropped = E * g * capacity(cfg, T_l // g)
+            outs += ((rows != dropped).reshape(xe.shape[0], S, cfg.top_k),)
+        return outs
+
+    x_s = P(dp)
+    wgu_s, wd_s = P(None, fsdp, tp), P(None, tp, fsdp)
+
+    def grad_of(spec):
+        # a weight replicated over data is used by each data shard's tokens
+        return spec if fsdp is not None else A.with_partial(spec, dp_axes[0])
+
+    in_specs = (x_s, x_s, P(), wgu_s, wgu_s, wd_s)
+    grad_specs = (A.with_partial(x_s, tp) if tp_on else x_s, x_s,
+                  A.with_partial(P(), dp_axes[0]),
+                  grad_of(wgu_s), grad_of(wgu_s), grad_of(wd_s))
+    out_specs = (x_s, P()) + ((x_s,) if return_kept else ())
+    return A.local_region(body, (x, x, p["router"], p["w_gate"], p["w_up"],
+                                 p["w_down"]), in_specs, out_specs, grad_specs)
+
+
 def moe_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out, aux): the routed experts over ``dispatch_groups``
-    groups (aux averaged over them), plus the shared experts, if any."""
+    groups (aux averaged over them), plus the shared experts, if any.
+
+    On a mesh (a DTensor x; ``B`` divisible by dp, ``S > 1``, ``d_ff_expert``
+    divisible by tp) the routed experts run ``_moe_ffn_shard_map``, as the
+    JAX package's ``moe_ffn`` decides."""
+    from repro_torch.parallel.activations import _STATE as _ACT, is_dtensor
     B, S, d = x.shape
-    G = dispatch_groups(cfg, B * S)
-    out, aux = _dispatch(cfg, p, x.reshape(G, (B * S) // G, d))
-    out = out.reshape(B, S, d)
+    use_sm = (_ACT["mesh"] is not None and _ACT["dp"] is not None
+              and is_dtensor(x) and B % _ACT["dp_size"] == 0 and S > 1
+              and cfg.d_ff_expert % max(_ACT["tp_size"], 1) == 0)
+    if use_sm:
+        out, aux = _moe_ffn_shard_map(cfg, p, x)
+    else:
+        G = dispatch_groups(cfg, B * S)
+        out, aux = _dispatch(cfg, p, x.reshape(G, (B * S) // G, d))
+        out = out.reshape(B, S, d)
+        aux = aux.mean()
     if cfg.n_shared_experts:
         out = out + L.ffn(cfg, p["shared"], x)
-    return out, aux.mean()
+    return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +395,7 @@ def moe_layer_fwd(cfg: ModelConfig, lp: Dict, x: torch.Tensor, kv_state=None,
     a, new_state = L.remat_wrap(cfg, attn_half, sublayer=True)(x)
     x = x + a
     f, aux = L.remat_wrap(cfg, ffn_half, sublayer=True)(x)
-    return x + f, new_state, aux
+    return shard_acts(x + f), new_state, aux
 
 
 def _cache_keys(cfg: ModelConfig) -> Tuple[str, str]:

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, register, resolve_device
+from repro_torch.parallel.activations import shard_acts
 
 
 def init_layer(cfg: ModelConfig, generator: torch.Generator, device) -> Dict:
@@ -42,9 +43,9 @@ def layer_fwd(cfg: ModelConfig, lp: Dict, x: torch.Tensor, positions,
     ffn_half = L.remat_wrap(cfg, ffn_half, sublayer=True)
     a, new_state = attn_half(x)
     if cfg.parallel_residual:
-        return x + a + ffn_half(x), new_state
+        return shard_acts(x + a + ffn_half(x)), new_state
     x = x + a
-    return x + ffn_half(x), new_state
+    return shard_acts(x + ffn_half(x)), new_state
 
 
 @register("dense")

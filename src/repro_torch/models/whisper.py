@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, register, resolve_device
+from repro_torch.parallel.activations import shard_acts
 
 
 def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
@@ -74,7 +75,8 @@ def encode(cfg: ModelConfig, params: Dict, enc_embeds: torch.Tensor) -> torch.Te
             h = L.apply_norm(cfg, lp["ln1"], x)
             a, _ = L.attn_block(cfg_nr, lp["attn"], h, None, causal=False)
             x = x + a
-            return x + L.ffn(cfg, lp["ffn"], L.apply_norm(cfg, lp["ln2"], x))
+            return shard_acts(
+                x + L.ffn(cfg, lp["ffn"], L.apply_norm(cfg, lp["ln2"], x)))
         x = _remat(cfg, body)(x)
     return L.apply_norm(cfg, params["enc_norm"], x)
 
@@ -103,7 +105,7 @@ def dec_layer_fwd(cfg: ModelConfig, lp: Dict, x: torch.Tensor, cross_k, cross_v,
     c, _ = L.attn_block(cfg_nr, lp["cross_attn"], h, cross_kv=(cross_k, cross_v))
     x = x + c
     x = x + L.ffn(cfg, lp["ffn"], L.apply_norm(cfg, lp["ln2"], x))
-    return x, new_state
+    return shard_acts(x), new_state
 
 
 def _unembed(cfg: ModelConfig, params: Dict, hidden: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, register, resolve_device
 from repro_torch.models.mamba2 import (CONV_KEYS, Mamba2LM, init_mamba_layer,
                                        mamba_layer_fwd)
+from repro_torch.parallel.activations import shard_acts
 
 _LORA_RANK = 8
 _STATE_KEYS = ("ssm", *CONV_KEYS)
@@ -80,7 +81,7 @@ def shared_block_fwd(cfg: ModelConfig, sp: Dict, x: torch.Tensor, x0: torch.Tens
     a = a + ((hn @ la) @ lb)[..., :cfg.d_model]
     h = h + a
     h = h + L.ffn(cfg, sp["ffn"], L.apply_norm(cfg, sp["ln2"], h))
-    return x + h, new_state
+    return shard_acts(x + h), new_state
 
 
 @register("hybrid")

@@ -7,7 +7,9 @@ Global-norm clipping runs in fp32.  The step count and every schedule
 quantity are fp32 tensors on the params' device, so a step never waits on the
 host.  Unlike the JAX package, which returns new trees, ``adamw_update``
 updates the params and the moments in place: at tinyllama-1.1b's size a
-second copy of the moments alone would cost 8.8 GB.
+second copy of the moments alone would cost 8.8 GB.  On a device mesh the
+params, grads and moments are DTensors of the same placements; the update
+runs on each rank's shards, and only the global norm communicates.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.parallel.activations import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -46,16 +49,43 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def adamw_init(params) -> Dict[str, Any]:
     """{"m", "v": fp32 zeros in the params' structure, "step": int32 0}."""
     def zeros(p):
-        return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
-                                              device=x.device), p)
+        # zeros_like: a DTensor param (a mesh) gets moments on its shards
+        return tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32), p)
     device = tree_leaves(params)[0].device
     return {"m": zeros(params), "v": zeros(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def _global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of every element's square.  On a mesh (DTensor
+    leaves) each leaf's local sum is taken on its shard and summed over the
+    mesh axes it is sharded on, so a replicated leaf counts once and a
+    sharded one across its shards; the result is a plain tensor, the same
+    on every rank."""
+    leaves = tree_leaves(tree)
+    if leaves and is_dtensor(leaves[0]):
+        return torch.sqrt(_mesh_sum_of_squares(leaves))
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+
+
+def _mesh_sum_of_squares(leaves) -> torch.Tensor:
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = leaves[0].device_mesh
+    by_axes = {}
+    for x in leaves:
+        if any(not isinstance(p, (Shard, Replicate)) for p in x.placements):
+            raise ValueError(f"a leaf with placements {x.placements}: reduce "
+                             f"partial sums before the norm")
+        axes = tuple(i for i, p in enumerate(x.placements) if isinstance(p, Shard))
+        local = torch.sum(torch.square(x.to_local().float()))
+        by_axes[axes] = local if axes not in by_axes else by_axes[axes] + local
+    total = None
+    for axes, part in sorted(by_axes.items()):
+        for i in axes:
+            dist.all_reduce(part, group=mesh.get_group(i))
+        total = part if total is None else total + part
+    return total
 
 
 @torch.no_grad()
@@ -83,5 +113,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state) -> Tuple[Any, Dict]:
 
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
+        if is_dtensor(p):
+            # elementwise: each rank updates its own shards
+            if not (g.placements == m.placements == v.placements == p.placements):
+                raise ValueError(f"placements differ: param {p.placements}, "
+                                 f"grad {g.placements}")
+            p, g, m, v = (x.to_local() for x in (p, g, m, v))
         upd(p, g, m, v)
     return params, {"m": state["m"], "v": state["v"], "step": step}
