@@ -54,6 +54,13 @@ forward and backward; llama3.2-3b's attention runs through `attn_sm`'s row
 layout on the forward kernel against the heads layout; `pipeline_apply`
 runs one stage over tinyllama-1.1b's 22 layers against `reference_apply`;
 and `compressed_psum` quantizes its full fp32 gradient tree to int8.
+The paper's Algorithm 1 and Eq. 10 then move eight logical chips of the card
+between three training jobs (tinyllama-1.1b at full width, two of its layers)
+through the port's elastic fleet, by checkpoint, rebuild and restore, with a
+host failed mid-run: every restore must give back the saved state bit for
+bit, the attention kernels must run on the jobs' steps, and a step at widths
+2 and 4 must give width 1's loss and gradients; examples/train_100m_torch.py
+trains its 100 M-parameter preset on the card.
 Every phase prints one JSON line; any failure raises, so the exit code is
 not 0.  Everything printed also goes to `chiprun_out/chip_smoke.log`.  The
 last line is `{"ok": true, "device": {...}}`.  Without a CUDA device it
@@ -66,6 +73,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -353,6 +361,32 @@ PARALLEL_STEP1_TOL = 1e-6
 PARALLEL_STEP2_TOL = 5e-3
 PARALLEL_ATTN_SHAPE = (8, 24, 8, 1024, 1024, 128)
 PARALLEL_MICRO = 8
+# The fleet phase (M13): the paper's Algorithm 1 and Eq. 10 moving chips
+# between three training jobs (examples/deadline_fleet_torch.py's job factory
+# and failure hook) on eight logical chips of cuda:0, two hosts of four.
+# Each job is FLEET_ARCH at full width cut to FLEET_LAYERS of its 22 layers
+# (its state, bf16 params and fp32 moments, is 2.2 GB: a resize saves and
+# restores it), bf16, batch 8 x 1024.  Deadlines are FLEET_DEADLINE_X times
+# the job's steps at a measured width-1 step: the urgent job's is half what
+# it needs alone on one chip, so while it shares the card its Eq.-10 demand
+# exceeds one chip whatever the noise in that measurement.  The fleet's clock counts training steps only: it leaves
+# out checkpoint saves, rebuilds and restores (seconds each, printed), which
+# would otherwise blow every deadline set from step times at the first
+# resize.  Host 1 fails at the first rebalance after the urgent job is done
+# (its chips are free then, so the failed jobs can recover).  The jobs take
+# the train phases' AdamW (TRAIN_OPT: at full width the demo's lr 1e-3 raises
+# the first steps' losses), a checkpoint every FLEET_CKPT_EVERY steps.
+# FLEET_WIDTHS: one step at each width of one job against the width-1 step.
+FLEET_ARCH = "tinyllama-1.1b"
+FLEET_LAYERS = 2
+FLEET_STEPS = {"job-urgent": 8, "job-mid": 16, "job-lazy": 4}
+FLEET_HOSTS = {"job-urgent": 0, "job-mid": 1, "job-lazy": 1}
+FLEET_DEADLINE_X = {"job-urgent": 0.5, "job-mid": 25, "job-lazy": 100}
+FLEET_WIDTHS = (2, 4)
+FLEET_FAIL_HOST = 1
+FLEET_CKPT_EVERY = 8
+# examples/train_100m_torch.py as a user runs it on the card
+TRAIN_100M_ARGS = ("--preset", "100m")
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -2817,6 +2851,261 @@ def phase_parallel() -> dict:
     return result
 
 
+class FleetClock:
+    """``time.perf_counter`` less the seconds ``exclude`` was told of: the
+    fleet's clock of training steps alone."""
+
+    def __init__(self):
+        self.excluded = 0.0
+
+    def __call__(self) -> float:
+        return time.perf_counter() - self.excluded
+
+    def exclude(self, seconds: float) -> None:
+        self.excluded += seconds
+
+
+def _seen_grads(opt) -> list:
+    """The gradient Adam saw at the first step, read back from the first
+    moments: m = (1 - b1) g."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    return [m / (1 - AdamWConfig().b1) for m in tree_leaves(opt["m"])]
+
+
+def phase_fleet() -> dict:
+    """The elastic fleet on the card (see FLEET_ARCH): (a) one job's
+    data-parallel step at widths 1, 2 and 4 from one state and batch: the
+    loss and every leaf of the gradient Adam saw within bf16 2e-2 of width
+    1's (relative to its max); (b) three jobs through FleetScheduler with
+    host 1 failed mid-run, every save kept (a copy on the card) and every
+    restore compared with it bit for bit, K1 and K1b counted over the fleet's steps
+    (each step's microbatches: the width when it divides the batch, else 1;
+    2 L forwards a microbatch under remat "full", L backwards); (c)
+    examples/train_100m_torch.py --preset 100m on the card."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import deadline_fleet_torch as ex
+    import train_100m_torch
+    from repro_torch.checkpoint.ckpt import _leaves
+    from repro_torch.configs import get_config
+    from repro_torch.elastic import ChipPool, FleetJob, FleetScheduler
+    from repro_torch.elastic import fleet as fleet_mod
+    from repro_torch.launch.mesh import ChipMesh
+
+    from repro_torch.optim import AdamWConfig
+
+    def fleet_opt(steps):
+        return AdamWConfig(**TRAIN_OPT, total_steps=steps)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(FLEET_ARCH).replace(num_layers=FLEET_LAYERS)
+    devices = ex.chip_devices("cuda")
+    if any(d.type != "cuda" for d in devices):
+        raise AssertionError(f"the fleet's chips are not on the card: {devices}")
+    result = {"arch": FLEET_ARCH, "layers": FLEET_LAYERS,
+              "cut": f"depth {FLEET_LAYERS} of {get_config(FLEET_ARCH).num_layers} layers",
+              "dtype": "bfloat16", "batch": BATCH, "seq": PROMPT_LEN,
+              "chips": [str(d) for d in devices], "chips_per_host": 4}
+
+    # (a) one step at each width from the same params and batch
+    release()
+    widths, base = {}, None
+    for width in (1,) + FLEET_WIDTHS:
+        make_step = ex.make_job_factory(1, 8, cfg, seq=PROMPT_LEN, batch=BATCH,
+                                        opt_cfg=fleet_opt(8))
+        step, state, place = make_step(ChipMesh(devices[:width]))
+        state = step(state)
+        loss = float(make_step.losses[-1])
+        seen = _seen_grads(state["opt"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        if base is None:
+            base = (loss, seen)
+            rel = {"loss": 0.0, "grads": 0.0}
+        else:
+            rel = {"loss": abs(loss - base[0]) / abs(base[0]),
+                   "grads": max(((a.float() - b.float()).abs().max()
+                                 / b.float().abs().max().clamp_min(1e-30)).item()
+                                for a, b in zip(seen, base[1]))}
+        widths[width] = {"loss": loss, "rel_err": rel, "second_step_s": step_s}
+        del step, state, seen, make_step
+        release()
+    base = None
+    result["widths"] = widths
+    emit("fleet_widths", **{f"width_{w}": v for w, v in widths.items()})
+    for width, w in widths.items():
+        if not (w["rel_err"]["loss"] < TOL[torch.bfloat16]
+                and w["rel_err"]["grads"] < TOL[torch.bfloat16]):
+            raise AssertionError(f"width {width} against width 1: {w}")
+    t1 = widths[1]["second_step_s"]
+
+    # (b) the fleet
+    clock = FleetClock()
+    pool = ChipPool(devices, chips_per_host=4)
+    root = tempfile.mkdtemp(prefix="fleet-", dir=ROOT / "build")
+    fleet = FleetScheduler(pool, root, clock=clock)
+    split = {"save": [], "rebuild": [], "restore": []}
+    kept, restores, grants, resizes, step_widths = {}, [], [], [], []
+    orig_save, orig_restore = fleet_mod.save_checkpoint, fleet_mod.restore_checkpoint
+    orig_match, orig_resize = pool.match, fleet._resize
+    orig_failure = fleet.handle_host_failure
+
+    def timed_save(ck, step, tree):
+        t_keep = time.perf_counter()
+        # what a restore must give back: a copy on the card, compared there
+        kept[str(ck)] = (step, {k: v.detach().clone() for k, v in _leaves(tree)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_save(ck, step, tree)
+        dt = time.perf_counter() - t0
+        split["save"].append(dt)
+        clock.exclude(time.perf_counter() - t_keep)
+        return out
+
+    def checked_restore(ck, step, template, device):
+        t0 = time.perf_counter()
+        out = orig_restore(ck, step, template, device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        split["restore"].append(dt)
+        saved_step, saved = kept[str(ck)]
+        leaves = dict(_leaves(out))
+        equal = (saved_step == step and leaves.keys() == saved.keys()
+                 and all(same_bits(leaves[k], saved[k]) for k in saved))
+        restores.append({"job": Path(ck).name, "step": step, "leaves": len(saved),
+                         "bit_equal": equal, "seconds": dt})
+        clock.exclude(time.perf_counter() - t0)
+        if not equal:
+            raise AssertionError(f"the restore of {ck} step {step} is not what was saved")
+        return out
+
+    def counted_match():
+        got = orig_match()
+        grants.extend(got)
+        return got
+
+    def recorded_resize(job, new_chips):
+        resizes.append({"job": job.job_id, "from": len(job.chips), "to": len(new_chips)})
+        return orig_resize(job, new_chips)
+
+    def timed_factory(make_step):
+        def build(mesh):
+            t0 = time.perf_counter()
+            step, state, place = make_step(mesh)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            split["rebuild"].append(dt)
+            clock.exclude(dt)
+            width = len(mesh.devices)
+
+            def counted_step(st):
+                step_widths.append(width)
+                return step(st)
+            return counted_step, state, place
+        build.losses = make_step.losses
+        return build
+
+    recovery = []
+
+    def timed_failure(host):
+        t0 = time.perf_counter()
+        orig_failure(host)
+        recovery.append(time.perf_counter() - t0)
+
+    fleet_mod.save_checkpoint, fleet_mod.restore_checkpoint = timed_save, checked_restore
+    pool.match, fleet._resize = counted_match, recorded_resize
+    fleet.handle_host_failure = timed_failure
+    try:
+        release()
+        reset_op_counts()
+        before = cuda_kernel_counts()
+        t_run = time.perf_counter()
+        for seed, (name, steps) in enumerate(FLEET_STEPS.items(), start=1):
+            fleet.submit(FleetJob(
+                name, deadline=FLEET_DEADLINE_X[name] * steps * t1, total_steps=steps,
+                make_step=timed_factory(ex.make_job_factory(
+                    seed, steps, cfg, seq=PROMPT_LEN, batch=BATCH,
+                    opt_cfg=fleet_opt(steps))),
+                preferred_hosts=(FLEET_HOSTS[name],), min_chips=1))
+        ex.run_with_failure(fleet, FLEET_FAIL_HOST, lambda: fleet.jobs["job-urgent"].done,
+                            rebalance_every=3, ckpt_every=FLEET_CKPT_EVERY,
+                            max_ticks=600)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run
+        counts, cuda_kernels = op_counts(), cuda_kernels_since(before)
+    finally:
+        fleet_mod.save_checkpoint, fleet_mod.restore_checkpoint = orig_save, orig_restore
+        shutil.rmtree(root, ignore_errors=True)
+    micro = sum(w if BATCH % w == 0 else 1 for w in step_widths)
+    expected = {"flash_attention_fwd": 2 * FLEET_LAYERS * micro,
+                "flash_attention_bwd": FLEET_LAYERS * micro}
+    jobs = {}
+    for j in fleet.jobs.values():
+        losses = [float(x) for x in j.make_step.losses]
+        took = j.finished_at - j.submitted_at
+        jobs[j.job_id] = {"steps": j.step, "total_steps": j.total_steps,
+                          "deadline_s": j.deadline, "took_s": took,
+                          "met": took <= j.deadline, "resizes": j.resizes,
+                          "losses": losses}
+    n_resize = len(resizes)
+    result["fleet"] = {
+        "steps_run": len(step_widths), "step_widths": step_widths,
+        "warm_step_s": t1, "events": fleet.events, "resizes": resizes,
+        "grants": [list(g) for g in grants],
+        "reconfigurations": pool.reconfigurations, "dead_hosts": sorted(pool.dead_hosts),
+        "jobs": jobs,
+        "seconds_a_resize": {k: sum(v) / len(v) if v else None for k, v in split.items()},
+        "seconds_save": split["save"], "seconds_rebuild": split["rebuild"],
+        "seconds_restore": split["restore"], "restores": restores,
+        "recovery_s": recovery, "run_s": run_s, "clock_excluded_s": clock.excluded,
+        "launches_by_kernel": {k: counts[k] for k in expected},
+        "expected_launches": expected, "cuda_kernel_launches": cuda_kernels}
+    emit("fleet_run", **result["fleet"])
+    problems = []
+    if not any(r["to"] > r["from"] for r in resizes):
+        problems.append("no job grew")
+    if not grants:
+        problems.append("no grant through ChipPool.match")
+    if not any("FAILED; affected=" in e for e in fleet.events) or \
+            not any(e.startswith("recovered") for e in fleet.events):
+        problems.append("no host failure and recovery")
+    if not restores or not all(r["bit_equal"] for r in restores):
+        problems.append("no restore, or one not bit-equal")
+    for name, j in jobs.items():
+        if j["steps"] != j["total_steps"] or \
+                not all(math.isfinite(x) for x in j["losses"]) or \
+                not j["losses"][-1] < j["losses"][0]:
+            problems.append(f"{name}: steps or losses {j['steps']} {j['losses']}")
+    if {k: counts[k] for k in expected} != expected or \
+            not cuda_kernels.get("fa_fwd_wgmma") or not cuda_kernels.get("fa_bwd_dq_wgmma"):
+        problems.append(f"launches {counts} ({cuda_kernels}), expected {expected}")
+    if problems:
+        raise AssertionError(f"the fleet phase: {problems} (resizes: {n_resize})")
+    del fleet, pool, kept
+    release()
+
+    # (c) examples/train_100m_torch.py on the card
+    ckpt = tempfile.mkdtemp(prefix="train100m-", dir=ROOT / "build")
+    try:
+        out = train_100m_torch.main([*TRAIN_100M_ARGS, "--ckpt-dir", ckpt])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    result["train_100m"] = {k: out[k] for k in ("params", "steps", "start",
+                                                "tokens_per_s", "seconds", "eq10")}
+    result["train_100m"]["first_loss"], result["train_100m"]["last_loss"] = \
+        out["losses"][0], out["losses"][-1]
+    emit("fleet_train_100m", **result["train_100m"])
+    if not all(math.isfinite(x) for x in out["losses"]) or \
+            not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"train_100m losses {out['losses'][:3]} ... {out['losses'][-3:]}")
+    result["seconds"] = time.perf_counter() - t_phase
+    emit("fleet", seconds=result["seconds"])
+    return result
+
+
 class Tee:
     """A stream that also writes everything to the log."""
 
@@ -2886,6 +3175,8 @@ def main() -> int:
     phase_checkpoint()
     release()
     par = phase_parallel()
+    release()
+    fleet = phase_fleet()
 
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
@@ -2995,6 +3286,9 @@ def main() -> int:
             # each, these from the last)
             rows[-1]["launches_parallel_mesh_train"] = \
                 par["train"]["launches_by_kernel"][name]
+            # the fleet phase's steps (counts set to 0 before its run)
+            rows[-1]["launches_fleet"] = \
+                fleet["fleet"]["launches_by_kernel"][name]
     # the fluid surrogate's scan (jnp in the JAX package, a kernel here):
     # launches on the bench grid (the rule's variant, fluid_scan_warp, by the
     # C count); ms / plain_ms / bound_ms on one 64-cell sub-batch of it, with

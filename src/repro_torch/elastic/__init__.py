@@ -1,0 +1,2 @@
+from repro_torch.elastic.fleet import (FleetJob, FleetScheduler, ChipPool,
+                                       EstimatorBridge)

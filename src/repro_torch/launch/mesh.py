@@ -7,7 +7,8 @@ initialised (``torch.distributed.init_process_group``: NCCL, one rank a card,
 or gloo on the CPU); ``make_test_mesh`` and ``make_production_mesh`` build
 ``init_device_mesh`` over it.  ``AbstractMesh`` is a mesh of axis names and
 sizes alone, for spec work without ranks (the dry-run's 16x16 and 2x16x16
-shapes on one process).
+shapes on one process); ``ChipMesh`` is one of a data axis over a list of
+devices (the elastic fleet's job meshes).
 """
 from __future__ import annotations
 
@@ -30,6 +31,17 @@ class AbstractMesh:
 
     def __repr__(self) -> str:
         return f"AbstractMesh({self.shape})"
+
+
+class ChipMesh(AbstractMesh):
+    """A one-axis ``("data",)`` mesh over a list of devices in chip order,
+    with no process group: the elastic fleet's counterpart of the JAX
+    package's ``Mesh(devices, ("data",))``.  Several chips may name one
+    device (logical chips of one card)."""
+
+    def __init__(self, devices: Sequence):
+        self.devices: Tuple[torch.device, ...] = tuple(torch.device(d) for d in devices)
+        super().__init__((len(self.devices),), ("data",))
 
 
 def axis_sizes(mesh) -> Dict[str, int]:

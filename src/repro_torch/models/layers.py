@@ -116,7 +116,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     cos_t, sin_t = _rope_angles(positions, D, theta)         # [B, 3, S, D//2]
     owner = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))              # [D//2]
+        torch.tensor(sections, device=x.device), output_size=D // 2)  # [D//2]
     idx = owner[None, None, None, :].expand(cos_t.shape[0], 1, cos_t.shape[2], -1)
     cos = torch.gather(cos_t, 1, idx)                         # [B, 1, S, D//2]
     sin = torch.gather(sin_t, 1, idx)
@@ -435,7 +435,10 @@ def init_embed(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     if is_dtensor(p["tok"]):        # a mesh: the vocab-parallel lookup
         return shard_embed_out(embedding(p["tok"], tokens).to(cfg.compute_dtype))
-    return p["tok"][tokens].to(cfg.compute_dtype)
+    # F.embedding, not indexing: on the card indexing's backward adds a bf16
+    # table's duplicate rows in bf16 (its gradient for a frequent token was
+    # 31 % of the leaf's max off the fp32 one), embedding's sums them in fp32
+    return F.embedding(tokens, p["tok"]).to(cfg.compute_dtype)
 
 
 def unembed(cfg: ModelConfig, p_embed: dict, p_head, x: torch.Tensor) -> torch.Tensor:

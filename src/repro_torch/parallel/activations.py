@@ -246,7 +246,7 @@ def embedding(table, tokens):
 
     def lookup(tab, tok):
         mine = (tok >= lo) & (tok < lo + width)
-        rows = tab[torch.where(mine, tok - lo, 0)]
+        rows = torch.nn.functional.embedding(torch.where(mine, tok - lo, 0), tab)
         if vocab_axes:
             rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
         return rows

@@ -431,7 +431,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               REPO / "scripts" / "bench_torch_surrogate.py",
               REPO / "scripts" / "fluid_scan_ablation.py",
               REPO / "scripts" / "bench_torch_sim.py",
-              REPO / "examples" / "experiment_sweep_torch.py"]
+              REPO / "examples" / "experiment_sweep_torch.py",
+              REPO / "examples" / "deadline_fleet_torch.py",
+              REPO / "examples" / "train_100m_torch.py"]
     assert len(files) > 25
     scanned = {p.relative_to(REPO / "src" / "repro_torch").as_posix()
                for p in files if "repro_torch" in p.parts}
@@ -451,7 +453,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "experiments/regimes.py", "experiments/__main__.py",
             "simcluster/_legacy.py", "experiments/telemetry.py",
             "experiments/paperfig.py", "experiments/__init__.py",
-            "simcluster/__init__.py"} <= scanned
+            "simcluster/__init__.py", "elastic/fleet.py", "elastic/__init__.py",
+            "analysis/params.py", "analysis/roofline.py", "analysis/flops.py",
+            "launch/dryrun.py"} <= scanned
     assert all(p.is_file() for p in files)
     banned = re.compile(
         r"^\s*(import\s+(jax|flax|repro)(\.|\s|,|$)|from\s+(jax|flax|repro)(\.|\s))",
