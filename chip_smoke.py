@@ -12,7 +12,8 @@ each call launched, as the C functions count them), times the attention
 forward and backward in turns against their earlier variants and PyTorch's
 fused backends and the SSD scan's forward and backward against their
 fp32-pipe variants, and each kernel at the full-width shapes of Qwen2-VL,
-Whisper, Zamba2, nemotron-4-15b and Mixtral's window; runs the paper's five
+Whisper, Zamba2, nemotron-4-15b, Mixtral's window and DeepSeek's MLA (q·k
+head dim 192, v 128); runs the paper's five
 MapReduce workloads on 2^30 tokens on the card against a numpy oracle;
 serves tinyllama-1.1b, stablelm-3b, mamba2-1.3b, qwen2-vl-2b, zamba2-1.2b,
 whisper-large-v3, llama3.2-3b, nemotron-4-15b and deepseek-v2-lite-16b at
@@ -112,6 +113,20 @@ SWEEP_SHAPES = [
     (1, 4, 4, 1500, 1500, 64),    # Whisper's encoder length
 ]
 SWEEP_MASKS = [(True, None), (False, None), (True, 48)]
+# (B, Hq, Hkv, Sq, Skv, D, Dv) at MLA's head dims (deepseek-v2-lite-16b: q·k
+# 192 = nope 128 + rope 64, v 128), forward and backward, over the masks of
+# each sweep: below one tile, ragged, GQA, Sq != Skv, a group of 1 as MLA has
+MLA_SWEEP_SHAPES = [
+    (1, 2, 2, 40, 40, 192, 128),
+    (2, 4, 4, 130, 130, 192, 128),
+    (1, 4, 2, 257, 257, 192, 128),
+    (1, 2, 2, 97, 160, 192, 128),
+    (1, 3, 3, 300, 300, 192, 128),
+]
+# deepseek-v2-lite-16b's attention at full width: 16 heads, each its own K
+# and V (MLA expands them per head), batch 8 x 1024, timed in the kernels
+# phases
+MLA_ATTN_SHAPE = (8, 16, 16, 1024, 1024, 192, 128)
 # relative to max|plain|, for attention's output and for the SSD scan's y and
 # final state alike
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -240,7 +255,20 @@ PARITY_TOL = 2e-4     # fp32, kernel path against dense path, 2 layers
 # full-width configs for that: every served arch (2 layers; deepseek's first
 # is its dense layer), and the train step's parity at 2 layers but
 # mixtral-8x22b's 1 (its fp32 params, grads and moments at 2 layers would
-# not fit 80 GB); the MoE archs' chosen experts must be equal on both paths
+# not fit 80 GB).  The MoE archs' chosen experts must be equal on both
+# paths, each path routing on its own.  The router ranks bf16-rounded
+# probabilities, so two correct fp32 paths (1e-7 apart) can order a
+# near-tied pair differently: with K1 on MLA, deepseek-v2-lite-16b's 64
+# experts flipped 2 of 8192 prefill tokens against the dense path.  Only the
+# archs of ROUTING_TIE_ARCHS may show such flips, and only where each
+# flipped slot is a tie of that rounding: the two experts' fp32
+# probabilities under TIE_BF16_STEPS bf16 steps apart on both paths, the
+# router's probabilities within PARITY_TOL.  The values are then compared
+# with the dense path run again on the kernel path's experts
+# (`replaying_routes`), so that both are one model; with no flip, with each
+# path's own experts
+TIE_BF16_STEPS = 1
+ROUTING_TIE_ARCHS = ("deepseek-v2-lite-16b",)
 PARITY_ARCHS = SERVE_ARCHS
 PARITY_TRAIN_LAYERS = {"mixtral-8x22b": 1}
 # Qwen2-VL's parity also takes one loss with vision embeddings prepended
@@ -421,14 +449,14 @@ def op_calls(cfg) -> dict:
     every Whisper encoder layer and twice in every decoder layer (its own and
     the cross-attention); the scan in every Mamba layer; Zamba2's shared
     block, outside the checkpoint, once each application; Mixtral's
-    attention in every layer, DeepSeek's MLA never (it takes the dense
-    path)."""
+    attention and DeepSeek's MLA in every layer (DeepSeek's dense first
+    layer outside the checkpoint)."""
     L = cfg.num_layers
     attn, scan = (0, 0), (0, 0)
     if cfg.family in ("dense", "vlm"):
         attn = (L, 0)
     elif cfg.family == "moe":
-        attn = (0, 0) if cfg.kv_lora_rank else (L - cfg.n_dense_layers, cfg.n_dense_layers)
+        attn = (L - cfg.n_dense_layers, cfg.n_dense_layers)
     elif cfg.family == "ssm":
         scan = (L, 0)
     elif cfg.family == "hybrid":
@@ -438,6 +466,14 @@ def op_calls(cfg) -> dict:
     return {"attention": attn, "scan": scan}
 
 
+def attention_head_dims(cfg) -> tuple:
+    """(q·k head dim, v head dim) of `cfg`'s attention: MLA's nope + rope and
+    v, the head dim twice elsewhere."""
+    if cfg.kv_lora_rank:
+        return cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def variant_kernels(cfg, op: str) -> tuple:
     """The CUDA kernels of the rule's forward and backward variants of `op`
     ("flash_attention" or "ssd_scan") for `cfg`'s type and shapes."""
@@ -445,9 +481,9 @@ def variant_kernels(cfg, op: str) -> tuple:
     from repro_torch.kernels.ssd_scan import kernel as kssd
     dt = cfg.compute_dtype
     if op == "flash_attention":
-        hd = cfg.resolved_head_dim
-        return (fa.VARIANT_KERNELS[fa.variant(dt, hd)],
-                fa.VARIANT_KERNELS_BWD[fa.variant_bwd(dt, hd)])
+        dims = attention_head_dims(cfg)
+        return (fa.VARIANT_KERNELS[fa.variant(dt, *dims)],
+                fa.VARIANT_KERNELS_BWD[fa.variant_bwd(dt, *dims)])
     shape = (cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk)
     return (kssd.VARIANT_KERNELS[kssd.variant(dt, *shape)],
             kssd.VARIANT_KERNELS_BWD[kssd.variant_bwd(dt, *shape)])
@@ -474,13 +510,6 @@ def expected_launches(cfg, train_steps: int = 0) -> tuple:
             for name in names if n else ():
                 kernels[name] = kernels.get(name, 0) + n
     return ops, kernels
-
-
-def dense_prefill_calls(cfg) -> int:
-    """Calls of the dense attention core in one prefill of `cfg`: one a
-    layer of DeepSeek's MLA (explicit positions, a head dim the kernel does
-    not take), none elsewhere."""
-    return cfg.num_layers if cfg.family == "moe" and cfg.kv_lora_rank else 0
 
 
 @contextlib.contextmanager
@@ -525,6 +554,84 @@ def routing_flips(a: list, b: list) -> dict:
         raise AssertionError(f"{len(a)} routing calls against {len(b)}")
     return {"routing_flips": sum(int((x != y).any(-1).sum()) for x, y in zip(a, b)),
             "routed_tokens": sum(x.shape[0] * x.shape[1] for x in a)}
+
+
+@contextlib.contextmanager
+def recording_probs():
+    """The router's fp32 probabilities of each call of `moe.route` inside the
+    block, in call order: one [G, T, E] tensor a call."""
+    from repro_torch.models import moe
+    fn, probs = moe.route, []
+
+    def recorded(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        probs.append(out[0].detach().float().clone())
+        return out
+    moe.route = recorded
+    try:
+        yield probs
+    finally:
+        moe.route = fn
+
+
+def routing_ties(routes_a: list, probs_a: list, routes_b: list, probs_b: list) -> dict:
+    """Two recordings of the same calls on two paths: the flips
+    (`routing_flips`), the router's probabilities' largest rel err, and at
+    every top-k slot where the paths chose other experts the fp32 gap
+    between the two experts' probabilities, on each path, in bf16 steps
+    (2^-7 of the larger one's power of two): under about one step the pair
+    rounds to one bf16 value or to neighbours, a tie the router breaks by
+    rounding, not a different model."""
+    from repro_torch.testing import rel_err
+    worst = 0.0
+    for ia, pa, ib, pb in zip(routes_a, probs_a, routes_b, probs_b):
+        ia, ib = ia.reshape(-1, ia.shape[-1]), ib.reshape(-1, ib.shape[-1])
+        pa, pb = pa.reshape(-1, pa.shape[-1]), pb.reshape(-1, pb.shape[-1])
+        tok, slot = torch.nonzero(ia != ib, as_tuple=True)
+        x, y = ia[tok, slot], ib[tok, slot]
+        for p in (pa, pb):
+            px, py = p[tok, x], p[tok, y]
+            step = torch.exp2(torch.floor(torch.log2(torch.maximum(px, py))) - 7)
+            if tok.numel():
+                worst = max(worst, float(((px - py).abs() / step).max()))
+    return {**routing_flips(routes_a, routes_b),
+            "router_probs_rel_err": max(rel_err(a, b) for a, b in zip(probs_a, probs_b)),
+            "flip_gap_bf16_steps": worst, "tie_bf16_steps": TIE_BF16_STEPS}
+
+
+def routing_agrees(arch: str, ties: dict) -> bool:
+    """The paths routed some tokens and chose the same experts for every
+    one, or, for an arch of ROUTING_TIE_ARCHS, other experts only at bf16
+    ties (`routing_ties`) from router probabilities that agree."""
+    if not ties["routed_tokens"]:
+        return False
+    if not ties["routing_flips"]:
+        return True
+    return bool(arch in ROUTING_TIE_ARCHS and ties["router_probs_rel_err"] < PARITY_TOL
+                and ties["flip_gap_bf16_steps"] < TIE_BF16_STEPS)
+
+
+def on_both_paths(arch: str, run_k, run_d):
+    """`run_k` on the kernel path and `run_d` on the dense path, each with
+    its own experts, and for a MoE arch what they chose (`routing_ties`).
+    Where the experts differ and `routing_agrees` lets them, `run_d` runs
+    again on the kernel path's experts, so that the values compared are
+    those of one model.  -> (out_k, out_d, ties ({} but for a MoE arch),
+    whether the dense path took the kernel path's experts)."""
+    from repro_torch.configs import get_config
+    if get_config(arch).family != "moe":
+        return run_k(), run_d(), {}, False
+    with recording_routes() as routes_k, recording_probs() as probs_k:
+        out_k = run_k()
+    with recording_routes() as routes_d, recording_probs() as probs_d:
+        out_d = run_d()
+    ties = routing_ties(routes_k, probs_k, routes_d, probs_d)
+    replayed = bool(ties["routing_flips"]) and routing_agrees(arch, ties)
+    if replayed:
+        out_d = None
+        with replaying_routes(routes_k):
+            out_d = run_d()
+    return out_k, out_d, ties, replayed
 
 
 def last_tokens(routes: list, batch: int) -> list:
@@ -643,10 +750,12 @@ def visible_pairs(sq: int, skv: int, causal: bool, window) -> int:
 def attention_bound_ms(q, k, v, causal, window):
     """Least time the card could take: the larger of bytes moved (q, k, v read
     once, o written once) over the memory rate and operations (two products
-    over the visible pairs) over the peak rate for the type."""
+    over the visible pairs, Q K^T at q's head dim and P V at v's) over the
+    peak rate for the type."""
     B, Hq, Sq, D = q.shape
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flops = 4 * B * Hq * D * visible_pairs(Sq, k.shape[2], causal, window)
+    Dv = v.shape[-1]
+    n_bytes = (q.numel() + k.numel() + v.numel() + B * Hq * Sq * Dv) * q.element_size()
+    flops = 2 * B * Hq * (D + Dv) * visible_pairs(Sq, k.shape[2], causal, window)
     peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -756,6 +865,25 @@ def library_attention(q, k, v, causal, window=None):
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
+def sdpa_forward(q, k, v, causal, backend: str):
+    """`F.scaled_dot_product_attention` under one backend alone: a call, or
+    None where the backend refuses the inputs.  The yardstick, used nowhere
+    in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gqa = q.shape[1] != k.shape[1]
+
+    def call():
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=gqa)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None
+    return call
+
+
 def phase_env() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -821,6 +949,26 @@ def phase_kernels() -> dict:
                               "rel_err": err, "tol": TOL[dtype]})
                 if not (err < TOL[dtype]) or not torch.isfinite(out).all():
                     raise AssertionError(f"flash_attention disagrees: {cases[-1]}")
+        # MLA's head dims: q and k at 192, v and the output at 128
+        for (B, Hq, Hkv, Sq, Skv, D, Dv) in MLA_SWEEP_SHAPES:
+            for causal, window in SWEEP_MASKS:
+                if causal and Sq != Skv:
+                    continue
+                q, k = make((B, Hq, Sq, D), dtype), make((B, Hkv, Skv, D), dtype)
+                v = make((B, Hkv, Skv, Dv), dtype)
+                out, ran, _ = launched_variant(
+                    lambda: flash_attention(q, k, v, causal=causal, window=window),
+                    fa, fa.variant(dtype, D, Dv))
+                ref = attention_ref(q, k, v, causal=causal, window=window)
+                err = rel_err(out, ref)
+                cases.append({"shape": [B, Hq, Hkv, Sq, Skv, D, Dv],
+                              "dtype": str(dtype).split(".")[1], "variant": ran,
+                              "causal": causal, "window": window,
+                              "rel_err": err, "tol": TOL[dtype]})
+                if not (err < TOL[dtype] and out.shape == ref.shape
+                        and bool(torch.isfinite(out).all())
+                        and (ran == "fa_fwd_wgmma") == (dtype == torch.bfloat16)):
+                    raise AssertionError(f"flash_attention disagrees: {cases[-1]}")
     # a strided [B, S, H, D] projection viewed as [B, H, S, D], and a row
     # that sees no key (window reaching no key of a shorter kv: exact 0)
     q = make((2, 70, 4, 64), torch.bfloat16).transpose(1, 2)
@@ -841,49 +989,80 @@ def phase_kernels() -> dict:
 
     def measure(shape, must_beat_earlier=False, causal=True, window=None):
         """bf16 at a full-width shape (causal unless told otherwise; a
-        window if given): error, and the kernel's time in turns with its
-        earlier variant (mma.sync, by `variant=`) and the library call, each
-        the better of two readings, beside the plain version's time and the
-        bound."""
-        B, Hq, Hkv, Sq, Skv, D = shape
+        window if given; (B, Hq, Hkv, Sq, Skv, D) or, at MLA's head dims,
+        (..., D, Dv)): error, and the kernel's time in turns with its
+        earlier variant (mma.sync, by `variant=`, where q, k and v share a
+        head dim) and the library call (SDPA; at MLA's head dims the fastest
+        fused backend that takes v's head dim, and SDPA over v zero-padded
+        to q's, its output cut back, as a second reading), each the better
+        of two readings, beside the plain version's time and the bound."""
+        B, Hq, Hkv, Sq, Skv, D = shape[:6]
+        Dv = shape[6] if len(shape) > 6 else D
         q = make((B, Hq, Sq, D), torch.bfloat16)
         k = make((B, Hkv, Skv, D), torch.bfloat16)
-        v = make((B, Hkv, Skv, D), torch.bfloat16)
+        v = make((B, Hkv, Skv, Dv), torch.bfloat16)
         out, ran, n_kernels = launched_variant(
             lambda: flash_attention(q, k, v, causal=causal, window=window), fa,
-            fa.variant(torch.bfloat16, D))
+            fa.variant(torch.bfloat16, D, Dv))
         ref = attention_ref(q, k, v, causal=causal, window=window)
         err = rel_err(out, ref)
         abs_err = float((out.float() - ref.float()).abs().max())
         if not err < TOL[torch.bfloat16] or ran != "fa_fwd_wgmma":
             raise AssertionError(f"shape {shape} disagrees: rel_err {err}, {ran}")
-        earlier = "fa_fwd_bf16_mma"
         kernel = lambda: flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
-        mma = lambda: fa.flash_attention_fwd(  # noqa: E731
-            q, k, v, causal=causal, window=window, variant=earlier)
-        earlier_err = rel_err(mma(), ref)
-        library = library_attention(q, k, v, causal, window)
-        lib_err = rel_err(library(), ref)
+        turns = [("kernel", kernel)]
+        earlier = "fa_fwd_bf16_mma" if D == Dv else None
+        if earlier:
+            mma = lambda: fa.flash_attention_fwd(  # noqa: E731
+                q, k, v, causal=causal, window=window, variant=earlier)
+            earlier_err = rel_err(mma(), ref)
+            turns.append(("earlier", mma))
+        lib = {}
+        if D == Dv:
+            library = library_attention(q, k, v, causal, window)
+        else:
+            # each fused backend alone on v as it is (MLA has no window)
+            calls = {n: sdpa_forward(q, k, v, causal, n) for n in SDPA_BACKENDS}
+            alone = {n: time_ms(c, 20) for n, c in calls.items() if c is not None}
+            best = min(alone, key=alone.get) if alone else None
+            library = calls[best] if best else None
+            lib = {"library_backend": best,
+                   "library_backends": {n: alone.get(n) for n in SDPA_BACKENDS}}
+        if library is not None:
+            lib_err = rel_err(library(), ref)
+            turns.append(("library", library))
+        if D != Dv:
+            padded = library_attention(q, k, F.pad(v, (0, D - Dv)), causal, window)
+            lib["library_padded_rel_err"] = rel_err(padded()[..., :Dv], ref)
+            turns.append(("library_padded", padded))
         plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=causal, window=window),
                            5, 1)
-        ms, order = in_turns([("kernel", kernel), ("earlier", mma),
-                              ("library", library)], 50)
+        ms, order = in_turns(turns, 50)
         kernel_ms = min(ms["kernel"])
         if must_beat_earlier and not kernel_ms < min(ms["earlier"]):
             raise AssertionError(f"{ran} is not faster than {earlier}: {order}")
         bound_ms, bound_by = attention_bound_ms(q, k, v, causal, window)
-        return {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
-                "window": window,
-                "variant": ran, "cuda_kernels_per_call": n_kernels,
-                "max_rel_err": err, "max_abs_err": abs_err,
-                "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
-                "earlier_variant": earlier, "earlier_ms": min(ms["earlier"]),
-                "earlier_rel_err": earlier_err,
-                "speedup_over_earlier": min(ms["earlier"]) / kernel_ms,
-                "ms_in_turns": order,
-                "plain_ms": plain_ms, "library_ms": min(ms["library"]),
-                "library_rel_err": lib_err, "bound_ms": bound_ms,
-                "bound_by": bound_by}
+        result = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+                  "window": window,
+                  "variant": ran, "cuda_kernels_per_call": n_kernels,
+                  "max_rel_err": err, "max_abs_err": abs_err,
+                  "tol": TOL[torch.bfloat16], "kernel_ms": kernel_ms,
+                  "ms_in_turns": order,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  **lib}
+        if library is not None:
+            result.update({"library_ms": min(ms["library"]), "library_rel_err": lib_err})
+        if earlier:
+            result.update({"earlier_variant": earlier, "earlier_ms": min(ms["earlier"]),
+                           "earlier_rel_err": earlier_err,
+                           "speedup_over_earlier": min(ms["earlier"]) / kernel_ms})
+        else:
+            # the library call on v as it is where a backend takes it, else
+            # over v padded
+            result.update({"library_padded_ms": min(ms["library_padded"]),
+                           "library_v_padded_to": None if library is not None else D})
+            result.setdefault("library_ms", result["library_padded_ms"])
+        return result
 
     # the main path's shape (tinyllama-1.1b), stablelm-3b's (head dim 80),
     # llama3.2-3b's head dim 128, and head dim 32, which no config has at
@@ -901,35 +1080,41 @@ def phase_kernels() -> dict:
              # past mixtral-8x22b's window: 4608 rows, 4096 keys at most
              "mixtral-8x22b window": measure(MIXTRAL_WINDOW_SHAPE,
                                              window=MIXTRAL_WINDOW)}
+    # deepseek-v2-lite-16b's MLA: q·k 192, v 128
+    mla = measure(MLA_ATTN_SHAPE)
     emit("kernels", name="flash_attention_fwd", sweep=cases,
          max_rel_err_fp32=max(c["rel_err"] for c in cases if c["dtype"] == "float32"),
          max_rel_err_bf16=max(c["rel_err"] for c in cases if c["dtype"] == "bfloat16"),
          main_path_shape=main, head_dim_80=d80, head_dim_128=d128,
-         head_dim_32_no_config_at_full_width=d32, later_families=later)
-    return main, d80, later, d128
+         head_dim_32_no_config_at_full_width=d32, later_families=later,
+         mla_192_128=mla)
+    return main, d80, later, d128, mla
 
 
 def attention_bwd_bound_ms(q, k, v, causal, window):
     """Least time the card could take for the backward: the larger of bytes
     moved (q, k, v, o, dO and lse read once, dq, dk, dv written once) over
     the memory rate and operations (five products over the visible pairs,
-    2.5 times the forward's two) over the peak rate for the type."""
+    2.5 times the forward's two: S, dQ and dK at q's head dim, dP and dV at
+    v's) over the peak rate for the type."""
     B, Hq, Sq, D = q.shape
-    n_bytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * q.element_size() \
-        + B * Hq * Sq * 4
-    flops = 10 * B * Hq * D * visible_pairs(Sq, k.shape[2], causal, window)
+    Dv = v.shape[-1]
+    n_bytes = (2 * q.numel() + 2 * B * Hq * Sq * Dv
+               + 2 * (k.numel() + v.numel())) * q.element_size() + B * Hq * Sq * 4
+    flops = 2 * B * Hq * (3 * D + 2 * Dv) * visible_pairs(Sq, k.shape[2], causal, window)
     peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_bwd_seven_products_ms(q, k, causal, window):
+def attention_bwd_seven_products_ms(q, k, v, causal, window):
     """The operations of the two-kernel design over the peak rate: S and dP
     are computed in both the dQ and the dK/dV kernel, seven products over the
     visible pairs for the five of `attention_bwd_bound_ms`."""
     B, Hq, Sq, D = q.shape
-    flops = 14 * B * Hq * D * visible_pairs(Sq, k.shape[2], causal, window)
+    Dv = v.shape[-1]
+    flops = 2 * B * Hq * (4 * D + 3 * Dv) * visible_pairs(Sq, k.shape[2], causal, window)
     peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     return flops / peak * 1e3
 
@@ -957,35 +1142,55 @@ def sdpa_backward(q, k, v, do, causal, backend: str):
         def call(out=out, ins=ins, gqa=gqa):
             dq, dk, dv = torch.autograd.grad(out, ins, do, retain_graph=True)
             if not gqa:   # the sum over each KV head's query heads
-                B, Hq, S, D = dk.shape
-                dk = dk.view(B, Hq // group, group, S, D).sum(2)
-                dv = dv.view(B, Hq // group, group, S, D).sum(2)
+                B, Hq, S = dk.shape[:3]
+                dk = dk.view(B, Hq // group, group, S, -1).sum(2)
+                dv = dv.view(B, Hq // group, group, S, -1).sum(2)
             return dq, dk, dv
         return call, gqa
     return None, None
 
 
-def device_split(fn, calls: int = 10) -> dict:
+def device_split(fn, calls: int = 10, burn: int = 1000, tries: int = 5) -> dict:
     """Device time of each CUDA kernel that `calls` runs of `fn` launch, by
-    torch.profiler: ms a call and share of the total."""
+    torch.profiler: ms a call, the launches recorded, and share of the
+    total.  The profiler loses kernel records at the start of a session
+    once the process has run a while (on an H100 with torch 2.11: none in a
+    fresh process, a few after some phases, now and then every one), so
+    `burn` small throwaway kernels open the session, only the
+    kernels that start after their synchronize are read, and the session
+    is run again, up to `tries` times, while it read no kernel or a count
+    of launches that is not a multiple of `calls`."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = getattr(evt, "cuda_time_total", 0.0)
-        if us > 0:
-            name = evt.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            times[name.split("(")[0]] = us / 1e3 / calls
-    total = sum(times.values())
-    return {name: {"ms": ms, "share": ms / total if total else None}
-            for name, ms in times.items()}
+    x = torch.zeros(1, device="cuda")
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(burn):
+                x.add_(1)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        syncs = sorted(e.time_range.end for e in events
+                       if e.name == "cudaDeviceSynchronize")
+        opened = syncs[0] if syncs else float("-inf")
+        us, launches = {}, {}
+        for evt in events:
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or evt.time_range.start < opened):
+                continue
+            name = evt.name.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0]
+            us[name] = us.get(name, 0.0) + evt.time_range.elapsed_us()
+            launches[name] = launches.get(name, 0) + 1
+        if us and all(n % calls == 0 for n in launches.values()):
+            break
+    total = sum(us.values())
+    return {name: {"ms": t / 1e3 / calls, "launches": launches[name],
+                   "share": t / total if total else None}
+            for name, t in us.items()}
 
 
 def phase_attention_bwd() -> dict:
@@ -1012,27 +1217,30 @@ def phase_attention_bwd() -> dict:
         return rel_err(lse[seen], ref[seen]) if bool(seen.any()) else 0.0
 
     def inputs(shape, dtype, causal, window):
-        B, Hq, Hkv, Sq, Skv, D = shape
+        """q, k, v, the plain forward's output and lse, and dO; `shape` is
+        (B, Hq, Hkv, Sq, Skv, D) or, at MLA's head dims, (..., D, Dv)."""
+        B, Hq, Hkv, Sq, Skv, D = shape[:6]
+        Dv = shape[6] if len(shape) > 6 else D
         q, k, v = make((B, Hq, Sq, D), dtype), make((B, Hkv, Skv, D), dtype), \
-            make((B, Hkv, Skv, D), dtype)
+            make((B, Hkv, Skv, Dv), dtype)
         out, lse = attention_ref(q, k, v, causal=causal, window=window,
                                  return_lse=True)
-        return q, k, v, out, lse, make((B, Hq, Sq, D), dtype)
+        return q, k, v, out, lse, make((B, Hq, Sq, Dv), dtype)
 
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in BWD_SHAPES:
-            D = shape[-1]
+        for shape in BWD_SHAPES + MLA_SWEEP_SHAPES:
+            dims = shape[5:]   # D, or MLA's (D, Dv)
             for causal, window in BWD_MASKS:
                 q, k, v, out, lse, do = inputs(shape, dtype, causal, window)
                 (_, lse_k), _, _ = launched_variant(
                     lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                                    window=window, return_lse=True),
-                    fa, fa.variant(dtype, D))
+                    fa, fa.variant(dtype, *dims))
                 bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
                     q, k, v, out, lse, do, causal=causal, window=window)
                 grads, ran, _ = launched_variant(
-                    bwd, fa, fa.variant_bwd(dtype, D), fa.VARIANT_KERNELS_BWD)
+                    bwd, fa, fa.variant_bwd(dtype, *dims), fa.VARIANT_KERNELS_BWD)
                 again = bwd()
                 ref = attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                         window=window)
@@ -1056,14 +1264,18 @@ def phase_attention_bwd() -> dict:
 
     def measure(shape, must_beat_earlier=False, causal=True) -> dict:
         """bf16 at a full-width training shape (causal unless told
-        otherwise): error, the kernel (variant_bwd's) timed in turns with the
-        mma.sync variant and with the fastest SDPA backend, each backend
-        alone, the split between the CUDA kernels, and the bounds."""
-        B, Hq, Hkv, Sq, Skv, D = shape
+        otherwise; MLA's (..., D, Dv) too): error, the kernel (variant_bwd's)
+        timed in turns with the mma.sync variant (where q, k and v share a
+        head dim) and with the fastest SDPA backend, each backend alone (at
+        MLA's head dims on v and dO as they are, and again over v and dO
+        zero-padded to q's, dV cut back, the fastest of those a second
+        reading), the split between the CUDA kernels, and the bounds."""
+        dims = shape[5:]
+        D, Dv = dims[0], dims[-1]
         q, k, v, out, lse, do = inputs(shape, torch.bfloat16, causal, None)
         grads, ran, n_kernels = launched_variant(
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal), fa,
-            fa.variant_bwd(torch.bfloat16, D), fa.VARIANT_KERNELS_BWD)
+            fa.variant_bwd(torch.bfloat16, *dims), fa.VARIANT_KERNELS_BWD)
         ref = attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
         errs = [rel_err(g, r) for g, r in zip(grads, ref)]
         abs_err = max(float((g.float() - r.float()).abs().max())
@@ -1078,52 +1290,79 @@ def phase_attention_bwd() -> dict:
             raise AssertionError(f"training shape {shape} disagrees: {errs}, "
                                  f"lse {main_lse_err}, equal {equal}, {ran} "
                                  f"with {n_kernels} CUDA kernels")
-        earlier = "fa_bwd_bf16_mma"   # the mma.sync design, at every bf16 head dim
+        # the mma.sync design, at every bf16 head dim that q, k and v share
+        earlier = "fa_bwd_bf16_mma" if D == Dv else None
         kernel = lambda: fa.flash_attention_bwd(  # noqa: E731
             q, k, v, out, lse, do, causal=causal)
-        mma = lambda: fa.flash_attention_bwd(  # noqa: E731
-            q, k, v, out, lse, do, causal=causal, variant=earlier)
-        mma_err = max(rel_err(g, r) for g, r in zip(mma(), ref))
+        turns = [("kernel", kernel)]
+        if earlier:
+            mma = lambda: fa.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, lse, do, causal=causal, variant=earlier)
+            mma_err = max(rel_err(g, r) for g, r in zip(mma(), ref))
+            turns.append(("earlier", mma))
         # every SDPA backend that takes the inputs, alone, then the fastest
-        # in turns with the two kernels: new, earlier, library, library,
+        # in turns with the kernels: new, earlier, library, library,
         # earlier, new
-        backends, library_errs = {}, {}
-        calls = {}
-        for name in SDPA_BACKENDS:
-            call, gqa = sdpa_backward(q, k, v, do, causal, name)
-            if call is None:
-                backends[name] = None
-                continue
-            calls[name] = call
-            library_errs[name] = max(rel_err(g, r) for g, r in zip(call(), ref))
-            backends[name] = {"ms": time_ms(call, 20), "enable_gqa": gqa}
-        timed = [n for n in SDPA_BACKENDS if backends[n] is not None]
-        best = min(timed, key=lambda n: backends[n]["ms"]) if timed else None
-        turns = [("kernel", kernel), ("earlier", mma)]
+        def library_backends(vv, dd):
+            """Each SDPA backend alone on q, k, `vv` and `dd` (dV cut back to
+            v's head dim): its ms, error and call, and the fastest."""
+            backends, errs, calls = {}, {}, {}
+            for name in SDPA_BACKENDS:
+                call, gqa = sdpa_backward(q, k, vv, dd, causal, name)
+                if call is None:
+                    backends[name] = None
+                    continue
+                calls[name] = call
+                dq_l, dk_l, dv_l = call()
+                errs[name] = max(rel_err(g, r) for g, r in
+                                 zip((dq_l, dk_l, dv_l[..., :Dv]), ref))
+                backends[name] = {"ms": time_ms(call, 20), "enable_gqa": gqa}
+            timed = [n for n in SDPA_BACKENDS if backends[n] is not None]
+            best = min(timed, key=lambda n: backends[n]["ms"]) if timed else None
+            return backends, errs, calls, best
+
+        backends, library_errs, calls, best = library_backends(v, do)
         if best is not None:
             turns.append(("library", calls[best]))
+        if D != Dv:
+            pad_backends, pad_errs, pad_calls, pad_best = library_backends(
+                F.pad(v, (0, D - Dv)), F.pad(do, (0, D - Dv)))
+            if pad_best is not None:
+                turns.append(("library_padded", pad_calls[pad_best]))
         ms, order = in_turns(turns, 20)
         plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do,
                                                      causal=causal), 3, 1)
         bound_ms, bound_by = attention_bwd_bound_ms(q, k, v, causal, None)
-        seven_ms = attention_bwd_seven_products_ms(q, k, causal, None)
+        seven_ms = attention_bwd_seven_products_ms(q, k, v, causal, None)
         split = device_split(kernel)
         kernel_ms = min(ms["kernel"])
         if must_beat_earlier and not kernel_ms < min(ms["earlier"]):
             raise AssertionError(f"{ran} is not faster than {earlier}: {order}")
-        return {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
-                "variant": ran, "cuda_kernels_per_call": n_kernels,
-                "dq_rel_err": errs[0], "dk_rel_err": errs[1], "dv_rel_err": errs[2],
-                "max_abs_err": abs_err, "lse_rel_err": main_lse_err,
-                "equal_run_to_run": equal,
-                "tol": BWD_TOL[torch.bfloat16], "kernel_ms": kernel_ms,
-                "cuda_kernels": split,
-                "earlier_variant": earlier, "earlier_ms": min(ms["earlier"]),
-                "earlier_rel_err": mma_err,
-                "speedup_over_earlier": min(ms["earlier"]) / kernel_ms,
+        result = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+                  "variant": ran, "cuda_kernels_per_call": n_kernels,
+                  "dq_rel_err": errs[0], "dk_rel_err": errs[1], "dv_rel_err": errs[2],
+                  "max_abs_err": abs_err, "lse_rel_err": main_lse_err,
+                  "equal_run_to_run": equal,
+                  "tol": BWD_TOL[torch.bfloat16], "kernel_ms": kernel_ms,
+                  "cuda_kernels": split}
+        if earlier:
+            result.update({"earlier_variant": earlier, "earlier_ms": min(ms["earlier"]),
+                           "earlier_rel_err": mma_err,
+                           "speedup_over_earlier": min(ms["earlier"]) / kernel_ms})
+        else:
+            # the library call on v and dO as they are where a backend takes
+            # them, else over v and dO padded
+            padded_ms = min(ms["library_padded"]) if pad_best else None
+            result.update({"library_padded_ms": padded_ms,
+                           "library_padded_backend": pad_best,
+                           "library_padded_backends": pad_backends,
+                           "library_padded_rel_err": pad_errs,
+                           "library_v_padded_to": None if best else D})
+        library_ms = min(ms["library"]) if best else result.get("library_padded_ms")
+        return {**result,
                 "ms_in_turns": order,
                 "plain_ms": plain_ms,
-                "library_ms": min(ms["library"]) if best else None,
+                "library_ms": library_ms,
                 "library_backend": best, "library_backends": backends,
                 "library_rel_err": library_errs,
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1131,6 +1370,7 @@ def phase_attention_bwd() -> dict:
                 "goal_ms": 0.50 if shape == TRAIN_ATTN_SHAPE else None}
 
     main = measure(TRAIN_ATTN_SHAPE, must_beat_earlier=True)
+    mla = measure(MLA_ATTN_SHAPE)   # deepseek-v2-lite-16b's MLA
     d80 = measure(STABLELM_ATTN_SHAPE, must_beat_earlier=True)
     d128 = {"llama3.2-3b": measure(BWD_D128_SHAPE),
             "mixtral-8x22b": measure(NEMOTRON_ATTN_SHAPE)}
@@ -1165,8 +1405,8 @@ def phase_attention_bwd() -> dict:
          variants={v: sum(c["variant"] == v for c in cases)
                    for v in fa.VARIANT_CODES_BWD},
          main_path_shape=main, head_dim_80=d80, head_dim_128=d128,
-         head_dim_32_no_config_at_full_width=d32)
-    return main, d80, d128
+         head_dim_32_no_config_at_full_width=d32, mla_192_128=mla)
+    return main, d80, d128, mla
 
 
 def ssd_inputs(gen, B, S, H, P, G, N, dtype, with_init=False):
@@ -1455,16 +1695,15 @@ def phase_serve(arch: str) -> dict:
     # rounds the other way in the step's bf16 would make the two sides two
     # routings; the flips are counted, and the prefill's dropped choices,
     # which must be none); in the prefill, each kernel-backed
-    # op as often as on the main path, and the dense attention core once a
-    # layer of MLA and nowhere else
+    # op as often as on the main path, and the dense attention core never
+    # (MLA's attention on K1 as every family's)
     check = no_drops(cfg) if cfg.family == "moe" else cfg
     prefill, decode = make_prefill_step(check), make_decode_step(check)
     reset_op_counts()
     with counting_dense_attention() as dense_calls, recording_routes() as full_routes:
         full, _ = prefill(params, {"tokens": prompts, **extra})
     prefill_paths = {"kernel": op_counts()["flash_attention_fwd"], **dense_calls}
-    if prefill_paths != {"kernel": want_counts["flash_attention_fwd"],
-                         "dense": dense_prefill_calls(cfg)}:
+    if prefill_paths != {"kernel": want_counts["flash_attention_fwd"], "dense": 0}:
         raise AssertionError(f"{arch}: one prefill took the attention paths "
                              f"{prefill_paths}")
     part, cache = prefill(params, {"tokens": prompts[:, :-1], **extra})
@@ -1513,7 +1752,9 @@ def phase_parity_on_card(arch: str) -> None:
     path against the dense path, prefill logits, hidden states and every
     cache tensor; Qwen2-VL also one loss with vision embeddings prepended,
     Whisper the encoder's output, the MoE archs the aux loss, and the
-    experts each path chose, which must be equal."""
+    experts each path chose, which must be equal (`routing_agrees`: but for
+    bf16 ties on DeepSeek, where the dense path's values are then those on
+    the kernel path's experts)."""
     from repro_torch.configs import get_config
     from repro_torch.models.common import get_model
     from repro_torch.testing import rel_err
@@ -1528,11 +1769,9 @@ def phase_parity_on_card(arch: str) -> None:
     tokens, extra = serve_inputs(cfg, gen)
     dense = cfg.replace(attn_impl="dense")
     batch = {"tokens": tokens, **extra}
-    with recording_routes() as routes_k:
-        logits_k, cache_k = model.prefill(cfg, params, batch)
-    with recording_routes() as routes_d:
-        logits_d, cache_d = model.prefill(dense, params, batch)
-    flips = routing_flips(routes_k, routes_d)
+    (logits_k, cache_k), (logits_d, cache_d), ties, replayed = on_both_paths(
+        arch, lambda: model.prefill(cfg, params, batch),
+        lambda: model.prefill(dense, params, batch))
     dense_cache = dict(cache_tensors(cache_d))
     errs = {"logits_rel_err": rel_err(logits_k, logits_d),
             "cache_rel_err": max(rel_err(val, dense_cache[key])
@@ -1546,8 +1785,9 @@ def phase_parity_on_card(arch: str) -> None:
             errs["hidden_rel_err"] = rel_err(model.decode_fwd(cfg, params, tokens, mem_k),
                                              model.decode_fwd(dense, params, tokens, mem_d))
         elif cfg.family == "moe":
-            (hidden_k, aux_k), (hidden_d, aux_d) = (model.forward(c, params, tokens)
-                                                    for c in (cfg, dense))
+            (hidden_k, aux_k), (hidden_d, aux_d), ties_f, replayed_f = on_both_paths(
+                arch, lambda: model.forward(cfg, params, tokens),
+                lambda: model.forward(dense, params, tokens))
             errs["hidden_rel_err"] = rel_err(hidden_k, hidden_d)
             errs["aux_rel_err"] = abs(float(aux_k) - float(aux_d)) / abs(float(aux_d))
         else:
@@ -1569,12 +1809,14 @@ def phase_parity_on_card(arch: str) -> None:
             if vision_launches != cfg.num_layers:
                 raise AssertionError(f"the vision loss launched K1 {vision_launches} times")
     head_dim = (cfg.ssm_headdim if cfg.family == "ssm" else
-                cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.kv_lora_rank else
+                list(attention_head_dims(cfg)) if cfg.kv_lora_rank else
                 cfg.resolved_head_dim)
-    moe = flips if cfg.family == "moe" else {}
+    moe = ({**ties, "replayed_kernel_experts": replayed,
+            "forward": {**ties_f, "replayed_kernel_experts": replayed_f}}
+           if ties else {})
     emit("parity_on_card", arch=arch, head_dim=head_dim, layers=2,
          dtype="float32", **errs, **moe, tol=PARITY_TOL)
-    if moe and (moe["routing_flips"] or not moe["routed_tokens"]):
+    if moe and not (routing_agrees(arch, ties) and routing_agrees(arch, ties_f)):
         raise AssertionError(f"{arch}: the paths chose other experts: {moe}")
     if not max(errs.values()) < PARITY_TOL:
         raise AssertionError(f"{arch}: kernel path and dense path disagree "
@@ -1793,7 +2035,9 @@ def phase_train_parity_on_card(arch: str) -> None:
     mixtral-8x22b: 1, PARITY_TRAIN_LAYERS), fp32, with the kernels against
     the dense path: loss, every gradient and the updated params (the
     ill-conditioned elements counted, the rest) at PARITY_TOL; the MoE
-    archs' chosen experts equal on both paths.  Each path's gradients are
+    archs' chosen experts equal on both paths (`routing_agrees`: but for
+    bf16 ties on DeepSeek, the dense path then taking the kernel path's
+    experts in the gradients and the step).  Each path's gradients are
     dropped once read, and the paths step the params in turn, in place on
     the card, from a copy on the host (the kernel path's result waits
     there), so that the card holds one path's training state at a time."""
@@ -1813,10 +2057,9 @@ def phase_train_parity_on_card(arch: str) -> None:
     params = get_model(cfg).init(cfg, gen, "cuda")
     n_params = sum(x.numel() for x in tree_leaves(params))
     batch = _train_batch(cfg)
-    with recording_routes() as routes_k:
-        loss_k, grads_k = loss_and_grads(cfg, params, batch)
-    with recording_routes() as routes_d:
-        loss_d, grads_d = loss_and_grads(dense, params, batch)
+    (loss_k, grads_k), (loss_d, grads_d), ties, replayed = on_both_paths(
+        arch, lambda: loss_and_grads(cfg, params, batch),
+        lambda: loss_and_grads(dense, params, batch))
     grad_errs = [rel_err(a, b) for a, b in zip(grads_k, grads_d)]
     del grads_k
     # the gradient Adam sees on the dense path: after the global-norm clip;
@@ -1828,8 +2071,19 @@ def phase_train_parity_on_card(arch: str) -> None:
     host = tree_map(lambda t: t.to("cpu"), params)
     stepped = {}
     for name, c in (("kernel", cfg), ("dense", dense)):
-        p, opt, m = make_train_step(c, AdamWConfig(**TRAIN_OPT))(
-            params, adamw_init(params), batch)
+        # where the gradients were taken on the kernel path's experts, the
+        # step is too
+        if not replayed:
+            experts = contextlib.nullcontext()
+        elif name == "kernel":
+            experts = recording_routes()
+        else:
+            experts = replaying_routes(routes_step)
+        with experts as routes:
+            p, opt, m = make_train_step(c, AdamWConfig(**TRAIN_OPT))(
+                params, adamw_init(params), batch)
+        if name == "kernel":
+            routes_step = routes
         stepped[name] = (p if name == "dense" else tree_map(lambda t: t.to("cpu"), p),
                          float(m["loss"]))
         del p, opt, m
@@ -1855,13 +2109,13 @@ def phase_train_parity_on_card(arch: str) -> None:
               "grad_norm": norm, "ill_conditioned_elements_off": n_ill,
               "ill_conditioned_max_abs_diff": ill_max_abs,
               "params": n_params, "tol": PARITY_TOL}
-    if cfg.family == "moe":
-        result.update(routing_flips(routes_k, routes_d))
+    if ties:
+        result.update(ties, replayed_kernel_experts=replayed)
     emit("train_parity_on_card", **result)
     if not (max(loss_err, step_loss_err, max(grad_errs), param_err) < PARITY_TOL
             and n_ill <= 1e-4 * n_params
             and ill_max_abs <= 2 * TRAIN_OPT["lr"] * 1.01
-            and not result.get("routing_flips")):
+            and (not ties or routing_agrees(arch, ties))):
         raise AssertionError(f"training: kernel path and dense path disagree: {result}")
 
 
@@ -3139,7 +3393,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
     smi_line = phase_env()
     phase_build(verbose="--verbose-build" in sys.argv[1:])
-    k1, k1_d80, k1_later, k1_d128 = phase_kernels()
+    k1, k1_d80, k1_later, k1_d128, k1_mla = phase_kernels()
     k2 = phase_ssd_kernels()
     k2b = phase_ssd_bwd_kernels()
     release()
@@ -3157,7 +3411,7 @@ def main() -> int:
     for arch in PARITY_ARCHS:
         release()
         phase_parity_on_card(arch)
-    k1b, k1b_d80, k1b_d128 = phase_attention_bwd()
+    k1b, k1b_d80, k1b_d128, k1b_mla = phase_attention_bwd()
     trained = {}
     for arch in TRAIN_ARCHS:
         release()
@@ -3197,7 +3451,11 @@ def main() -> int:
     # `launches_dense_head_dim_128` the counts on llama3.2-3b's and
     # nemotron-4-15b's paths (nemotron-4-15b is not trained; K1b's also on
     # mixtral-8x22b's, whose training shape is nemotron-4-15b's), and K1's
-    # and K1b's `dense_head_dim_128` the timings at their shapes
+    # and K1b's `dense_head_dim_128` the timings at their shapes; the
+    # `_mla` rows are K1 and K1b at DeepSeek's MLA head dims (q·k 192, v
+    # 128: other instances of the same CUDA kernels), timed at its shape,
+    # their launches those of deepseek-v2-lite-16b's prefill and timed
+    # train steps
     def served(arch, op):
         return serves[arch]["launches_by_kernel"][op]
 
@@ -3289,6 +3547,25 @@ def main() -> int:
             # the fleet phase's steps (counts set to 0 before its run)
             rows[-1]["launches_fleet"] = \
                 fleet["fleet"]["launches_by_kernel"][name]
+    for name, source, replaces, numbers, launches in (
+            ("flash_attention_fwd_mla", fa.SOURCE,
+             "src/repro/kernels/flash_attention/kernel.py:32", k1_mla,
+             served("deepseek-v2-lite-16b", "flash_attention_fwd")),
+            ("flash_attention_bwd_mla", fa.SOURCE_BWD, "src/repro/models/flash.py:197",
+             k1b_mla, train_launches("deepseek-v2-lite-16b", "flash_attention_bwd"))):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": str(source.relative_to(ROOT)), "replaces": replaces,
+            "launches": launches, "max_abs_err": numbers["max_abs_err"],
+            "ms": numbers["kernel_ms"], "plain_ms": numbers["plain_ms"],
+            "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
+            "library_ms": numbers["library_ms"],
+            "library_v_padded_to": numbers["library_v_padded_to"],
+            "library_padded_ms": numbers["library_padded_ms"],
+            "library_backend": numbers.get("library_backend"),
+            "variant": numbers["variant"],
+            "cuda_kernels_per_call": numbers["cuda_kernels_per_call"],
+            "shape": numbers["shape"]})
     # the fluid surrogate's scan (jnp in the JAX package, a kernel here):
     # launches on the bench grid (the rule's variant, fluid_scan_warp, by the
     # C count); ms / plain_ms / bound_ms on one 64-cell sub-batch of it, with

@@ -14,8 +14,9 @@ step's peak device memory.  Prints one JSON line per phase: the wall time,
 the time the device was busy, its idle share, the number of kernels, and the
 kernels that took most of the device time.  For the MoE archs it also splits
 the busy time by region (``REGIONS``): the router, the dispatch, the expert
-products, the un-dispatch, MLA's cache expansion and its dense attention,
-each with the backward of what ran inside it.
+products, the un-dispatch, MLA's cache expansion, the attention on the
+flash-attention kernels (prefill and training) and on the dense path
+(decode), each with the backward of what ran inside it.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ RANGE = "region:"
 REGIONS = (("moe_router", moe, "route"), ("moe_dispatch", moe, "dispatch"),
            ("moe_experts", moe, "expert_products"), ("moe_combine", moe, "combine"),
            ("mla_expand", moe, "_mla_expand"),
+           ("kernel_attention", layers, "flash_attention"),
            ("dense_attention", layers, "attention_dense"))
 
 

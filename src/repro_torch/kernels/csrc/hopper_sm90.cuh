@@ -389,12 +389,15 @@ __host__ __device__ constexpr int padded() {
 // acc[64 x C] += A[64 x 16] B, B the MN-major k-step at `db` of a tile whose
 // 64-column atoms lie ATOM_BYTES apart: one wgmma of N C over whole atoms
 // (the LBO of db steps between them), or, for a partial last atom, N 64 on
-// the first and N C - 64 on the second; the accumulator's columns follow
-// the atoms', so the register layout note above holds column by column.
+// the first and N C - 64 on the second; at C 192 (MLA's q/k head dim) N 128
+// on the first two atoms and N 64 on the third.  The accumulator's columns
+// follow the atoms', so the register layout note above holds column by
+// column.
 template <int C, int ATOM_BYTES>
 __device__ __forceinline__ void wgmma_rs_cols(float (&acc)[C / 2],
                                               const uint32_t (&a)[4], uint64_t db) {
-  static_assert(C == 32 || C == 64 || C == 80 || C == 128, "no wgmma for C");
+  static_assert(C == 32 || C == 64 || C == 80 || C == 128 || C == 192,
+                "no wgmma for C");
   if constexpr (C == 32) {
     wgmma_rs_n32<1>(acc, a, db, 1);
   } else if constexpr (C == 64) {
@@ -404,6 +407,10 @@ __device__ __forceinline__ void wgmma_rs_cols(float (&acc)[C / 2],
     // the descriptor's address field counts 16-byte units
     wgmma_rs_n16<1>(*reinterpret_cast<float(*)[8]>(acc + 32), a,
                     db + (ATOM_BYTES >> 4), 1);
+  } else if constexpr (C == 192) {
+    wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(acc), a, db, 1);
+    wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(acc + 64), a,
+                    db + 2 * (ATOM_BYTES >> 4), 1);
   } else {
     wgmma_rs_n128<1>(acc, a, db, 1);
   }

@@ -4,8 +4,9 @@
 // `_flash_bwd_impl` in src/repro/models/flash.py (behind the custom VJP of
 // `flash_attention` there; the TPU forward `_fa_kernel` of
 // src/repro/kernels/flash_attention/kernel.py has no Pallas backward).  Given
-// q [B,Hq,Sq,D], k, v [B,Hkv,Skv,D], the forward's output o and its per-row
-// log-sum-exp lse [B,Hq,Sq] (flash_fwd.cu writes it), and dO, it computes
+// q [B,Hq,Sq,D], k [B,Hkv,Skv,D], v [B,Hkv,Skv,Dv], the forward's output o
+// [B,Hq,Sq,Dv] and its per-row log-sum-exp lse [B,Hq,Sq] (flash_fwd.cu writes
+// it), and dO, it computes
 //   delta = rowsum(dO * O)
 //   P     = exp(S / sqrt(D) - lse) under the mask     (S = Q K^T)
 //   dP    = dO V^T
@@ -20,14 +21,16 @@
 // and a half times the forward's operations, against each input read once:
 // at a training shape (Sq = Skv = 1024, D = 64) it is bound by operations.
 // Three variants (the wrapper's `kernel.variant_bwd()` chooses from dtype and
-// head dim, and passes its code in):
-//  * `fa_bwd_wgmma`, bf16 at every head dim (tinyllama-1.1b's and
+// head dims, and passes its code in).  D (DQK below) and Dv (DV) are equal,
+// or MLA's (192, 128) (deepseek-v2-lite-16b's training path); dQ and dK have
+// D columns, dV Dv; the scale is 1 / sqrt(D).
+//  * `fa_bwd_wgmma`, bf16 at every pair (tinyllama-1.1b's and
 //    stablelm-3b's training paths): two CUDA kernels on wgmma + TMA,
 //    described at the section below that holds them.  dQ first, whose items
 //    also compute delta, then dK/dV.
-//  * `fa_bwd_bf16_mma`, bf16 at every head dim, reached only by an explicit
+//  * `fa_bwd_bf16_mma`, bf16 at the equal pairs, reached only by an explicit
 //    `variant=` (the earlier design, timed against the wgmma one), and
-//    `fa_bwd_simt`, fp32: three CUDA kernels each.
+//    `fa_bwd_simt`, fp32 at every pair: three CUDA kernels each.
 //    - `fa_bwd_delta`: delta, one warp a row, fp32.
 //    - `fa_bwd_dkdv_*`: one block per (batch, KV head, 64-row k tile).  It
 //      loops over the q tiles of every query head of the group, so dK and dV
@@ -100,7 +103,7 @@ struct BwdParams {
   float* delta;      // [B, Hq, Sq] contiguous scratch
   void* dq;          // [B, Hq, Sq, D] contiguous
   void* dk;          // [B, Hkv, Skv, D] contiguous
-  void* dv;
+  void* dv;          // [B, Hkv, Skv, Dv] contiguous
   int hq, hkv, sq, skv;
   long long q_sb, q_sh, q_ss;  // strides in elements; the last dim has stride 1
   long long k_sb, k_sh, k_ss;
@@ -179,15 +182,16 @@ __global__ void __launch_bounds__(256) fa_bwd_delta(BwdParams p) {
 // fp32: full-precision products on the fp32 pipes.  256 threads as 16 x 16;
 // thread (ty, tx) owns rows ty*4 .. ty*4+3 and columns tx + 16*j of each
 // 64 x 64 tile of logits, and the same rows and columns tx + 16*j of its
-// output rows.  Rows of shared memory are D + 1 floats apart (odd: column
-// reads hit distinct banks).
+// output rows.  Rows of shared memory are DQK + 1 or DV + 1 floats apart
+// (odd: column reads hit distinct banks).
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;  // rows of every tile of the fp32 kernels
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t simt_smem_bytes() {
-  return sizeof(float) * (4 * kTile * (D + 1) + kTile * (kTile + 4) + 2 * kTile);
+  return sizeof(float) * (2 * kTile * (DQK + 1) + 2 * kTile * (DV + 1) +
+                          kTile * (kTile + 4) + 2 * kTile);
 }
 
 // Rows [row0, row0 + 64) of a [seq, D] matrix into shared memory with row
@@ -201,17 +205,42 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
   }
 }
 
+// c[i][j] = the sum over d < D of A[ty*4 + i][d] B[tx + 16 j][d]: this
+// thread's 4 x 4 of the 64 x 64 product of two tiles' rows (row strides lda
+// and ldb)
 template <int D>
+__device__ __forceinline__ void rows_by_rows(float (&c)[4][4], const float* A,
+                                             int lda, const float* B, int ldb,
+                                             int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = A[(ty * 4 + i) * lda + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = B[(tx + 16 * j) * ldb + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[i][j] = fmaf(av[i], bv[j], c[i][j]);
+  }
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256) fa_bwd_dkdv_simt(BwdParams p) {
-  constexpr int LD = D + 1;
+  constexpr int LDK = DQK + 1, LDV = DV + 1;
   constexpr int LDP = kTile + 4;
-  constexpr int ND = D / 16;  // output columns per thread
+  constexpr int NK = DQK / 16, NV = DV / 16;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);  // [64][LD]
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;   // [64][LDP]: P^T, then dS^T
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // [64][LDK]
+  float* Vs = Ks + kTile * LDK;                     // [64][LDV]
+  float* Qs = Vs + kTile * LDV;                     // [64][LDK]
+  float* dOs = Qs + kTile * LDK;                    // [64][LDV]
+  float* Ps = dOs + kTile * LDV;  // [64][LDP]: P^T, then dS^T
   float* lse2 = Ps + kTile * LDP;  // [64] lse in base 2
   float* dl = lse2 + kTile;        // [64] delta
 
@@ -221,16 +250,19 @@ __global__ void __launch_bounds__(256) fa_bwd_dkdv_simt(BwdParams p) {
   const int group = p.hq / p.hkv;
   const int k_start = blockIdx.x * kTile;
 
-  load_rows_f32<D>(Ks, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh,
-                   p.k_ss, k_start, p.skv);
-  load_rows_f32<D>(Vs, static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh,
-                   p.v_ss, k_start, p.skv);
+  load_rows_f32<DQK>(Ks, static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh,
+                     p.k_ss, k_start, p.skv);
+  load_rows_f32<DV>(Vs, static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh,
+                    p.v_ss, k_start, p.skv);
 
-  float dk[4][ND], dv[4][ND];
+  float dk[4][NK], dv[4][NV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < ND; ++j) dk[i][j] = dv[i][j] = 0.f;
+    for (int j = 0; j < NK; ++j) dk[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dv[i][j] = 0.f;
+  }
 
   int lo, hi;
   q_tile_range(p, k_start, kTile, kTile, &lo, &hi);
@@ -241,8 +273,8 @@ __global__ void __launch_bounds__(256) fa_bwd_dkdv_simt(BwdParams p) {
     for (int qt = lo; qt < hi; ++qt) {
       const int q_start = qt * kTile;
       __syncthreads();  // the previous tile's Q, dO, lse and delta are read
-      load_rows_f32<D>(Qs, qg, p.q_ss, q_start, p.sq);
-      load_rows_f32<D>(dOs, dog, p.do_ss, q_start, p.sq);
+      load_rows_f32<DQK>(Qs, qg, p.q_ss, q_start, p.sq);
+      load_rows_f32<DV>(dOs, dog, p.do_ss, q_start, p.sq);
       if (tid < kTile) {
         const bool in = q_start + tid < p.sq;
         lse2[tid] = in ? p.lse[row_base + q_start + tid] * kLog2e : 0.f;
@@ -252,31 +284,8 @@ __global__ void __launch_bounds__(256) fa_bwd_dkdv_simt(BwdParams p) {
 
       // S^T and dP^T: rows are keys, columns queries
       float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * LD + d];
-          vv[i] = Vs[(ty * 4 + i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * LD + d];
-          ov[j] = dOs[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-            dpt[i][j] = fmaf(vv[i], ov[j], dpt[i][j]);
-          }
-      }
+      rows_by_rows<DQK>(st, Ks, LDK, Qs, LDK, ty, tx);
+      rows_by_rows<DV>(dpt, Vs, LDV, dOs, LDV, ty, tx);
       const bool full = tile_is_full(p, q_start, kTile, k_start, kTile);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -294,15 +303,15 @@ __global__ void __launch_bounds__(256) fa_bwd_dkdv_simt(BwdParams p) {
       __syncwarp();
 #pragma unroll 4
       for (int n = 0; n < kTile; ++n) {  // dV += P^T dO
-        float pv[4], ov[ND];
+        float pv[4], ov[NV];
 #pragma unroll
         for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * LDP + n];
 #pragma unroll
-        for (int j = 0; j < ND; ++j) ov[j] = dOs[n * LD + tx + 16 * j];
+        for (int j = 0; j < NV; ++j) ov[j] = dOs[n * LDV + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < ND; ++j) dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
+          for (int j = 0; j < NV; ++j) dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
       }
       __syncwarp();
 #pragma unroll
@@ -312,15 +321,15 @@ __global__ void __launch_bounds__(256) fa_bwd_dkdv_simt(BwdParams p) {
       __syncwarp();
 #pragma unroll 4
       for (int n = 0; n < kTile; ++n) {  // dK += dS^T Q
-        float sv[4], qv[ND];
+        float sv[4], qv[NK];
 #pragma unroll
         for (int i = 0; i < 4; ++i) sv[i] = Ps[(ty * 4 + i) * LDP + n];
 #pragma unroll
-        for (int j = 0; j < ND; ++j) qv[j] = Qs[n * LD + tx + 16 * j];
+        for (int j = 0; j < NK; ++j) qv[j] = Qs[n * LDK + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < ND; ++j) dk[i][j] = fmaf(sv[i], qv[j], dk[i][j]);
+          for (int j = 0; j < NK; ++j) dk[i][j] = fmaf(sv[i], qv[j], dk[i][j]);
       }
       __syncwarp();
     }
@@ -331,27 +340,26 @@ __global__ void __launch_bounds__(256) fa_bwd_dkdv_simt(BwdParams p) {
   for (int i = 0; i < 4; ++i) {
     const int kpos = k_start + ty * 4 + i;
     if (kpos >= p.skv) continue;
-    float* dkr = static_cast<float*>(p.dk) + (out_base + kpos) * D;
-    float* dvr = static_cast<float*>(p.dv) + (out_base + kpos) * D;
+    float* dkr = static_cast<float*>(p.dk) + (out_base + kpos) * DQK;
+    float* dvr = static_cast<float*>(p.dv) + (out_base + kpos) * DV;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      dkr[tx + 16 * j] = dk[i][j];
-      dvr[tx + 16 * j] = dv[i][j];
-    }
+    for (int j = 0; j < NK; ++j) dkr[tx + 16 * j] = dk[i][j];
+#pragma unroll
+    for (int j = 0; j < NV; ++j) dvr[tx + 16 * j] = dv[i][j];
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256) fa_bwd_dq_simt(BwdParams p) {
-  constexpr int LD = D + 1;
+  constexpr int LDK = DQK + 1, LDV = DV + 1;
   constexpr int LDP = kTile + 4;
-  constexpr int ND = D / 16;
+  constexpr int NK = DQK / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // [64][LD]
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;  // [64][LDP]: dS
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [64][LDK]
+  float* dOs = Qs + kTile * LDK;                    // [64][LDV]
+  float* Ks = dOs + kTile * LDV;                    // [64][LDK]
+  float* Vs = Ks + kTile * LDK;                     // [64][LDV]
+  float* Ps = Vs + kTile * LDV;  // [64][LDP]: dS
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -360,11 +368,11 @@ __global__ void __launch_bounds__(256) fa_bwd_dq_simt(BwdParams p) {
   const int hk = h / (p.hq / p.hkv);
   const int q_start = q_tile * kTile;
 
-  load_rows_f32<D>(Qs, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
-                   p.q_ss, q_start, p.sq);
-  load_rows_f32<D>(dOs,
-                   static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
-                   p.do_ss, q_start, p.sq);
+  load_rows_f32<DQK>(Qs, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
+                     p.q_ss, q_start, p.sq);
+  load_rows_f32<DV>(dOs,
+                    static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh,
+                    p.do_ss, q_start, p.sq);
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   const long long row_base = (static_cast<long long>(b) * p.hq + h) * p.sq;
@@ -376,47 +384,24 @@ __global__ void __launch_bounds__(256) fa_bwd_dq_simt(BwdParams p) {
     dl[i] = qpos < p.sq ? p.delta[row_base + qpos] : 0.f;
   }
 
-  float dq[4][ND];
+  float dq[4][NK];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < ND; ++j) dq[i][j] = 0.f;
+    for (int j = 0; j < NK; ++j) dq[i][j] = 0.f;
 
   int lo, hi;
   k_tile_range(p, q_start, kTile, kTile, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k_start = kt * kTile;
     __syncthreads();  // the previous tile's K and V are no longer read
-    load_rows_f32<D>(Ks, kg, p.k_ss, k_start, p.skv);
-    load_rows_f32<D>(Vs, vg, p.v_ss, k_start, p.skv);
+    load_rows_f32<DQK>(Ks, kg, p.k_ss, k_start, p.skv);
+    load_rows_f32<DV>(Vs, vg, p.v_ss, k_start, p.skv);
     __syncthreads();
 
     float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty * 4 + i) * LD + d];
-        ov[i] = dOs[(ty * 4 + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * LD + d];
-        vv[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
+    rows_by_rows<DQK>(s, Qs, LDK, Ks, LDK, ty, tx);
+    rows_by_rows<DV>(dp, dOs, LDV, Vs, LDV, ty, tx);
     const bool full = tile_is_full(p, q_start, kTile, k_start, kTile);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -431,15 +416,15 @@ __global__ void __launch_bounds__(256) fa_bwd_dq_simt(BwdParams p) {
     __syncwarp();
 #pragma unroll 4
     for (int n = 0; n < kTile; ++n) {  // dQ += dS K
-      float sv[4], kv[ND];
+      float sv[4], kv[NK];
 #pragma unroll
       for (int i = 0; i < 4; ++i) sv[i] = Ps[(ty * 4 + i) * LDP + n];
 #pragma unroll
-      for (int j = 0; j < ND; ++j) kv[j] = Ks[n * LD + tx + 16 * j];
+      for (int j = 0; j < NK; ++j) kv[j] = Ks[n * LDK + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < ND; ++j) dq[i][j] = fmaf(sv[i], kv[j], dq[i][j]);
+        for (int j = 0; j < NK; ++j) dq[i][j] = fmaf(sv[i], kv[j], dq[i][j]);
     }
     __syncwarp();
   }
@@ -448,9 +433,9 @@ __global__ void __launch_bounds__(256) fa_bwd_dq_simt(BwdParams p) {
   for (int i = 0; i < 4; ++i) {
     const int qpos = q_start + ty * 4 + i;
     if (qpos >= p.sq) continue;
-    float* dqr = static_cast<float*>(p.dq) + (row_base + qpos) * D;
+    float* dqr = static_cast<float*>(p.dq) + (row_base + qpos) * DQK;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) dqr[tx + 16 * j] = dq[i][j];
+    for (int j = 0; j < NK; ++j) dqr[tx + 16 * j] = dq[i][j];
   }
 }
 
@@ -783,9 +768,10 @@ __global__ void __launch_bounds__(128) fa_bwd_dq_mma(BwdParams p) {
 // whatever its lse.
 //
 //  * fa_bwd_dq_wgmma, first: one item per (128-row q tile, batch, query
-//    head), 288 threads (two consumer warpgroups and a producer warp).  The
-//    producer brings the item's Q and dO (two buffers, so it runs on into the
-//    next item) and the K and V tiles of the forward's bounds.  Each
+//    head), 288 threads (two consumer warpgroups and a producer warp; 384 at
+//    (192, 128), see dq_threads()).  The producer brings the item's Q and dO
+//    (two buffers where they fit, so it runs on into the next item) and the
+//    K and V tiles of the forward's bounds.  Each
 //    warpgroup first computes delta = rowsum(dO * O) of its 64 rows from dO
 //    in shared memory and O from device memory, and writes it, with lse in
 //    base 2, to the row-statistics scratch that the second kernel reads;
@@ -811,20 +797,47 @@ __global__ void __launch_bounds__(128) fa_bwd_dq_mma(BwdParams p) {
 // and a third of the time), and at head dims up to 80 a tile's second products
 // stay in flight while the next tile's first ones are issued
 // (chain_products).
+//
+// MLA's pair (192, 128) holds more a thread: dQ 96 fp32 registers, dK 96 and
+// dV 64.  The dQ kernel then takes a whole producer warpgroup and setmaxnreg
+// as the dK/dV kernel does (its 288 threads would cap it at 168 registers);
+// the dK/dV kernel, whose dK and dV leave 80 of the 240 for S^T, dP^T and
+// the fragments of both second products, runs a step in three waits
+// (split_products): S^T, then P^T as bf16 fragments while dP^T and
+// dV += P^T dO are issued, then dS^T from P^T's bf16 values and dK += dS^T Q.
+// Shared memory keeps the 64-row tiles that the wgmma atoms need and gives
+// up stages and the dQ kernel's second Q/dO buffer instead (dq_buffers()).
 // ---------------------------------------------------------------------------
 
 constexpr int kWRows = 128;  // rows of an item: q rows (dQ) or k rows (dK/dV)
 constexpr int kWTile = 64;   // rows of a streamed tile: K/V (dQ), Q/dO (dK/dV)
 
 // Tiles take padded<D>() columns of shared memory (whole 64-column atoms, the
-// last zero-filled past D at head dims 32 and 80; hopper_sm90.cuh).
-template <int D>
-__host__ __device__ constexpr int dq_stages() {
-  return padded<D>() == 64 ? 6 : 3;  // what fits beside two Q and two dO buffers
+// last zero-filled past D at head dims 32 and 80; hopper_sm90.cuh); what fits
+// in 227 KB.  At (192, 128) an item's Q and dO take 80 KB, a stage of K and V
+// (or of Q and dO) 40 KB.
+template <int DQK, int DV>
+__host__ __device__ constexpr int dq_buffers() {
+  return DQK == DV ? 2 : 1;
 }
-template <int D>
+template <int DQK, int DV>
+__host__ __device__ constexpr int dq_stages() {
+  return DQK != DV ? 3 : padded<DQK>() == 64 ? 6 : 3;  // beside the Q and dO buffers
+}
+template <int DQK, int DV>
 __host__ __device__ constexpr int dkdv_stages() {
-  return padded<D>() == 64 ? 6 : 4;  // what fits beside K and V of the item
+  return DQK != DV ? 3 : padded<DQK>() == 64 ? 6 : 4;  // beside K and V of the item
+}
+// the dQ kernel's threads: a producer warp, or a producer warpgroup that
+// hands its registers to the consumers
+template <int DQK, int DV>
+__host__ __device__ constexpr int dq_threads() {
+  return DQK == DV ? 288 : 384;
+}
+// the dK/dV kernel's step in three waits (see above)
+template <int DQK, int DV>
+__host__ __device__ constexpr bool split_products() {
+  return DQK != DV;
 }
 
 // Columns of the second products' accumulators (dQ, dK, dV): D, the last
@@ -836,23 +849,26 @@ __host__ __device__ constexpr int acc_cols() {
   return D;
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dq_wgmma_smem_bytes() {
-  // alignment slack; Q and dO, two buffers each of [128][padded D]; K and V,
-  // dq_stages() stages of [64][padded D] each; delta of each warpgroup's
-  // rows, two buffers; barriers
-  constexpr int DP = padded<D>();
-  return 1024 + sizeof(bf16) * (4 * kWRows * DP + 2 * dq_stages<D>() * kWTile * DP) +
-         sizeof(float) * 2 * 2 * 64 + 8 * (4 + 2 * dq_stages<D>());
+  // alignment slack; Q and dO, dq_buffers() buffers of [128][padded DQK]
+  // and [128][padded DV]; K and V, dq_stages() stages of [64][padded DQK]
+  // and [64][padded DV]; delta of each warpgroup's rows, two buffers;
+  // barriers
+  constexpr int W = padded<DQK>() + padded<DV>();
+  constexpr int QB = dq_buffers<DQK, DV>(), ST = dq_stages<DQK, DV>();
+  return 1024 + sizeof(bf16) * (QB * kWRows * W + ST * kWTile * W) +
+         sizeof(float) * 2 * 2 * 64 + 8 * (2 * QB + 2 * ST);
 }
-template <int D>
+template <int DQK, int DV>
 constexpr size_t dkdv_wgmma_smem_bytes() {
-  // alignment slack; K and V of the item, [128][padded D] each; Q and dO,
-  // dkdv_stages() stages of [64][padded D] each, with 64 rows of lse and
-  // delta; barriers
-  constexpr int DP = padded<D>();
-  return 1024 + sizeof(bf16) * (2 * kWRows * DP + 2 * dkdv_stages<D>() * kWTile * DP) +
-         sizeof(float) * 128 * dkdv_stages<D>() + 8 * (2 + 2 * dkdv_stages<D>());
+  // alignment slack; K and V of the item, [128][padded DQK] and [128][padded
+  // DV]; Q and dO, dkdv_stages() stages of [64][padded DQK] and [64][padded
+  // DV], with 64 rows of lse and delta; barriers
+  constexpr int W = padded<DQK>() + padded<DV>();
+  constexpr int ST = dkdv_stages<DQK, DV>();
+  return 1024 + sizeof(bf16) * (kWRows * W + ST * kWTile * W) +
+         sizeof(float) * 128 * ST + 8 * (2 + 2 * ST);
 }
 
 // Whether a tile's second products stay in flight while the next tile's
@@ -862,9 +878,9 @@ constexpr size_t dkdv_wgmma_smem_bytes() {
 // (accumulators of 40 registers, not 64) it does not, and the chain saves
 // 2 to 3 % (scripts/flash_bwd_ablation.py, variants `chained` and
 // `unchained`; PERF.md).
-template <int D>
+template <int DQK, int DV>
 __host__ __device__ constexpr bool chain_products() {
-  return D <= 80;
+  return DQK == DV && DQK <= 80;
 }
 
 struct BwdTma {
@@ -888,6 +904,10 @@ __device__ __forceinline__ bool sees_any(const BwdParams& p, int q0, int bm,
   if (p.causal && q0 + bm - 1 < k0) return false;
   if (p.window > 0 && q0 - (k0 + bn - 1) >= p.window) return false;
   return true;
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
 __device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b) {
@@ -986,35 +1006,97 @@ __device__ __forceinline__ void dkdv_fragments(uint32_t (&pa)[4][4],
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(288, 1)
+// The split step's halves of dkdv_fragments (split_products): P^T alone,
+// from S^T, as the bf16 A fragments of dV += P^T dO ...
+template <bool kMask>
+__device__ __forceinline__ void dkdv_p_fragments(uint32_t (&pa)[4][4],
+                                                 const float (&st)[32],
+                                                 const BwdParams& p,
+                                                 const float* lse2, int qcol0,
+                                                 int krow0) {
+  const int c0 = qcol0 & 63;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float pv[8];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = 8 * (2 * kk + hf);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c0 + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 4 * hf + e;
+        float pt = fast_exp2(fmaf(st[i], p.scale_log2, -((e & 1) ? l2.y : l2.x)));
+        if (kMask && !visible(p, qcol0 + c + (e & 1), krow0 + 8 * (e >> 1))) pt = 0.f;
+        pv[4 * hf + e] = pt;
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) pa[kk][f] = pack_bf16(pv[2 * f], pv[2 * f + 1]);
+  }
+}
+
+// ... then dS^T from dP^T and those fragments' bf16 P (a masked P is 0
+// there already), as the A fragments of dK += dS^T Q
+__device__ __forceinline__ void dkdv_ds_fragments(uint32_t (&sa)[4][4],
+                                                  const uint32_t (&pa)[4][4],
+                                                  const float (&dpt)[32],
+                                                  const BwdParams& p,
+                                                  const float* dl, int qcol0) {
+  const int c0 = qcol0 & 63;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    float ds[8];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = 8 * (2 * kk + hf);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + c0 + c);
+      const float ds0 = d2.x * p.scale, ds1 = d2.y * p.scale;
+      const float2 lo = unpack_bf16(pa[kk][2 * hf]), hi = unpack_bf16(pa[kk][2 * hf + 1]);
+      const float pt[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * kk + 4 * hf + e;
+        ds[4 * hf + e] = pt[e] * fmaf(dpt[i], p.scale, -((e & 1) ? ds1 : ds0));
+      }
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) sa[kk][f] = pack_bf16(ds[2 * f], ds[2 * f + 1]);
+  }
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(DQK == DV ? 288 : 384, 1)
     fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, BwdParams p,
                     BwdTma t) {
-  constexpr int DP = padded<D>();  // columns of a tile in shared memory
-  constexpr int OC = acc_cols<D>();
-  constexpr int KD = D / 16;       // k-steps of S and dP
+  // columns of a tile of Q or K, and of dO or V, in shared memory
+  constexpr int DPK = padded<DQK>(), DPV = padded<DV>();
+  constexpr int OC = acc_cols<DQK>();
+  constexpr int KDK = DQK / 16;    // k-steps of S
+  constexpr int KDV = DV / 16;     // k-steps of dP
   constexpr int KN = kWTile / 16;  // k-steps of dQ += dS K
-  constexpr int ST = dq_stages<D>();
-  constexpr uint32_t ITEM_TILE = kWRows * DP * sizeof(bf16);  // whole boxes
-  constexpr uint32_t TILE = kWTile * DP * sizeof(bf16);
+  constexpr int QB = dq_buffers<DQK, DV>();
+  constexpr int ST = dq_stages<DQK, DV>();
+  // whole boxes: an item's Q and dO, a tile's K and V
+  constexpr uint32_t ITEM_BYTES = kWRows * (DPK + DPV) * sizeof(bf16);
+  constexpr uint32_t TILE_BYTES = kWTile * (DPK + DPV) * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // [2][NA][128][64]
-  bf16* dOs = Qs + 2 * kWRows * DP;                          // [2][NA][128][64]
-  bf16* Ks = dOs + 2 * kWRows * DP;                          // [ST][NA][64][64]
-  bf16* Vs = Ks + ST * kWTile * DP;                          // [ST][NA][64][64]
-  float* dls = reinterpret_cast<float*>(Vs + ST * kWTile * DP);  // [2 wg][2][64]
+  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // [QB][NAK][128][64]
+  bf16* dOs = Qs + QB * kWRows * DPK;                        // [QB][NAV][128][64]
+  bf16* Ks = dOs + QB * kWRows * DPV;                        // [ST][NAK][64][64]
+  bf16* Vs = Ks + ST * kWTile * DPK;                         // [ST][NAV][64][64]
+  float* dls = reinterpret_cast<float*>(Vs + ST * kWTile * DPV);  // [2 wg][2][64]
   uint64_t* bars = reinterpret_cast<uint64_t*>(dls + 256);
-  uint64_t* q_full = bars;           // [2]: Q and dO of an item
-  uint64_t* q_empty = bars + 2;      // [2], one arrival per consumer thread
-  uint64_t* full = bars + 4;         // [ST]: K and V of a tile
-  uint64_t* empty = bars + 4 + ST;   // [ST], one arrival per consumer thread
+  uint64_t* q_full = bars;                // [QB]: Q and dO of an item
+  uint64_t* q_empty = bars + QB;          // [QB], one arrival per consumer thread
+  uint64_t* full = bars + 2 * QB;         // [ST]: K and V of a tile
+  uint64_t* empty = bars + 2 * QB + ST;   // [ST], one arrival per consumer thread
 
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < QB; ++i) {
       mbar_init(q_full + i, 1);
       mbar_init(q_empty + i, 256);
     }
@@ -1029,8 +1111,10 @@ __global__ void __launch_bounds__(288, 1)
   const int bh = p.hq * t.batch;
   const int group = p.hq / p.hkv;
   const int warp_id = warp_index();
-  if (warp_id == 8) {
-    // the producer warp; one lane issues every copy, item after item
+  if (warp_id >= 8) {
+    // the producer warp (or warpgroup, which gives its registers to the
+    // consumers); one lane issues every copy, item after item
+    if constexpr (dq_threads<DQK, DV>() == 384) setmaxnreg_dec<24>();
     if (tid != 256) return;
     int ring = 0;  // K/V tiles this block has loaded
     for (int n = 0;; ++n) {
@@ -1040,26 +1124,27 @@ __global__ void __launch_bounds__(288, 1)
       const int h = j % p.hq, b = (j % bh) / p.hq;
       int lo, hi;
       k_tile_range(p, q_start, kWRows, kWTile, &lo, &hi);
-      const int qb = n & 1;
-      if (n >= 2) mbar_wait(q_empty + qb, (n / 2 - 1) & 1);
-      mbar_expect_tx(q_full + qb, 2 * ITEM_TILE);
-      tma_rows<D, kWRows>(Qs + qb * kWRows * DP, &tq, t.q_s_first, q_full + qb,
-                          q_start, h, b);
-      tma_rows<D, kWRows>(dOs + qb * kWRows * DP, &tdo, t.do_s_first, q_full + qb,
-                          q_start, h, b);
+      const int qb = n % QB;
+      if (n >= QB) mbar_wait(q_empty + qb, (n / QB - 1) & 1);
+      mbar_expect_tx(q_full + qb, ITEM_BYTES);
+      tma_rows<DQK, kWRows>(Qs + qb * kWRows * DPK, &tq, t.q_s_first, q_full + qb,
+                            q_start, h, b);
+      tma_rows<DV, kWRows>(dOs + qb * kWRows * DPV, &tdo, t.do_s_first, q_full + qb,
+                           q_start, h, b);
       for (int kt = lo; kt < hi; ++kt, ++ring) {
         const int s = ring % ST;
         if (ring >= ST) mbar_wait(empty + s, (ring / ST - 1) & 1);
-        mbar_expect_tx(full + s, 2 * TILE);
-        tma_rows<D, kWTile>(Ks + s * kWTile * DP, &tk, t.k_s_first, full + s,
-                            kt * kWTile, h / group, b);
-        tma_rows<D, kWTile>(Vs + s * kWTile * DP, &tv, t.v_s_first, full + s,
-                            kt * kWTile, h / group, b);
+        mbar_expect_tx(full + s, TILE_BYTES);
+        tma_rows<DQK, kWTile>(Ks + s * kWTile * DPK, &tk, t.k_s_first, full + s,
+                              kt * kWTile, h / group, b);
+        tma_rows<DV, kWTile>(Vs + s * kWTile * DPV, &tv, t.v_s_first, full + s,
+                             kt * kWTile, h / group, b);
       }
     }
     return;
   }
 
+  if constexpr (dq_threads<DQK, DV>() == 384) setmaxnreg_inc<240>();
   const int wg = warp_id / 4, warp = warp_id % 4, lane = tid % 32;
   const int g = lane / 4, qd = lane % 4;
   const int wt = tid - wg * 128;  // thread of the warpgroup
@@ -1071,26 +1156,26 @@ __global__ void __launch_bounds__(288, 1)
     const int h = j % p.hq, b = (j % bh) / p.hq;
     int lo, hi;
     k_tile_range(p, q_start, kWRows, kWTile, &lo, &hi);
-    const int qb = n & 1;
-    const bf16* Qw = Qs + qb * kWRows * DP + wg * 64 * 64;  // this warpgroup's rows
-    const bf16* dOw = dOs + qb * kWRows * DP + wg * 64 * 64;
+    const int qb = n % QB;
+    const bf16* Qw = Qs + qb * kWRows * DPK + wg * 64 * 64;  // this warpgroup's rows
+    const bf16* dOw = dOs + qb * kWRows * DPV + wg * 64 * 64;
     const int qw_start = q_start + wg * 64;
     const long long bhrow = static_cast<long long>(b) * p.hq + h;
     // delta of the warpgroup's 64 rows, two threads a row: O from device
     // memory, its loads (and those of lse) issued before the wait for Q and
     // dO, then dO from the swizzled buffer (16-byte chunk c of row R sits at
-    // chunk c % 8 ^ (R % 8) of atom c / 8; D / 8 chunks, none of the zeros)
+    // chunk c % 8 ^ (R % 8) of atom c / 8; DV / 8 chunks, none of the zeros)
     const int r_d = wt / 2, half = wt % 2;
     const int qpos_d = qw_start + r_d;
     const int R = wg * 64 + r_d;  // row of the 128-row buffer
-    uint4 ov[D / 16];
+    uint4 ov[DV / 16];
 #pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
+    for (int i = 0; i < DV / 16; ++i) {
       ov[i] = make_uint4(0u, 0u, 0u, 0u);
       if (qpos_d < p.sq)
         ov[i] = *reinterpret_cast<const uint4*>(
             static_cast<const bf16*>(p.o) + b * p.o_sb + h * p.o_sh +
-            qpos_d * p.o_ss + (half * (D / 16) + i) * 8);
+            qpos_d * p.o_ss + (half * (DV / 16) + i) * 8);
     }
     const float lse2_d = qpos_d < p.sq ? p.lse[bhrow * p.sq + qpos_d] * kLog2e : 0.f;
     // rows g and g + 8 of the warp's 16
@@ -1101,15 +1186,15 @@ __global__ void __launch_bounds__(288, 1)
       const int qpos = row0 + r * 8;
       lse2[r] = qpos < p.sq ? p.lse[bhrow * p.sq + qpos] * kLog2e : 0.f;
     }
-    mbar_wait(q_full + qb, (n / 2) & 1);
+    mbar_wait(q_full + qb, (n / QB) & 1);
 
     float* dlw = dls + (wg * 2 + qb) * 64;
     {
       float acc = 0.f;
-      const bf16* drow = dOs + qb * kWRows * DP + R * 64;
+      const bf16* drow = dOs + qb * kWRows * DPV + R * 64;
 #pragma unroll
-      for (int i = 0; i < D / 16; ++i) {
-        const int c = half * (D / 16) + i;  // 16-byte chunk of the row
+      for (int i = 0; i < DV / 16; ++i) {
+        const int c = half * (DV / 16) + i;  // 16-byte chunk of the row
         acc += dot8_bf16(ov[i], *reinterpret_cast<const uint4*>(
                                     drow + (c / 8) * kWRows * 64 + ((c % 8) ^ (R & 7)) * 8));
       }
@@ -1150,18 +1235,18 @@ __global__ void __launch_bounds__(288, 1)
         mbar_arrive(empty + s);
         continue;
       }
-      const bf16* Kt = Ks + s * kWTile * DP;
-      const bf16* Vt = Vs + s * kWTile * DP;
+      const bf16* Kt = Ks + s * kWTile * DPK;
+      const bf16* Vt = Vs + s * kWTile * DPV;
       // S = Q K^T and dP = dO V^T; the first k-step only writes
       float sc[32], dp[32];
       wgmma_fence();
       wgmma_ss_n64_first<0, 0>(sc, kmajor<kWRows>(Qw, 0), kmajor<kWTile>(Kt, 0));
 #pragma unroll
-      for (int kk = 1; kk < KD; ++kk)
+      for (int kk = 1; kk < KDK; ++kk)
         wgmma_ss_n64<0, 0>(sc, kmajor<kWRows>(Qw, kk), kmajor<kWTile>(Kt, kk), 1);
       wgmma_ss_n64_first<0, 0>(dp, kmajor<kWRows>(dOw, 0), kmajor<kWTile>(Vt, 0));
 #pragma unroll
-      for (int kk = 1; kk < KD; ++kk)
+      for (int kk = 1; kk < KDV; ++kk)
         wgmma_ss_n64<0, 0>(dp, kmajor<kWRows>(dOw, kk), kmajor<kWTile>(Vt, kk), 1);
       wgmma_commit();
       wgmma_wait<0>();  // S and dP, and the previous tile's dQ product
@@ -1186,7 +1271,7 @@ __global__ void __launch_bounds__(288, 1)
 #pragma unroll
       for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dq, da[kk], mnmajor<kWTile>(Kt, kk));
       wgmma_commit();
-      if constexpr (chain_products<D>()) {
+      if constexpr (chain_products<DQK, DV>()) {
         pending = s;
       } else {
         wgmma_wait<0>();
@@ -1207,35 +1292,38 @@ __global__ void __launch_bounds__(288, 1)
     for (int r = 0; r < 2; ++r) {
       const int qpos = row0 + r * 8;
       if (qpos >= p.sq) continue;
-      bf16* dqr = static_cast<bf16*>(p.dq) + (bhrow * p.sq + qpos) * D + 2 * qd;
+      bf16* dqr = static_cast<bf16*>(p.dq) + (bhrow * p.sq + qpos) * DQK + 2 * qd;
 #pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn)
+      for (int nn = 0; nn < DQK / 8; ++nn)
         *reinterpret_cast<uint32_t*>(dqr + nn * 8) =
             pack_bf16(dq[4 * nn + 2 * r], dq[4 * nn + 2 * r + 1]);
     }
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(384, 1)
     fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo, BwdParams p,
                       BwdTma t) {
-  constexpr int DP = padded<D>();  // columns of a tile in shared memory
-  constexpr int OC = acc_cols<D>();
-  constexpr int KD = D / 16;       // k-steps of S^T and dP^T
+  // columns of a tile of K or Q, and of V or dO, in shared memory
+  constexpr int DPK = padded<DQK>(), DPV = padded<DV>();
+  constexpr int OCK = acc_cols<DQK>(), OCV = acc_cols<DV>();
+  constexpr int KDK = DQK / 16;    // k-steps of S^T
+  constexpr int KDV = DV / 16;     // k-steps of dP^T
   constexpr int KN = kWTile / 16;  // k-steps of dV += P^T dO and dK += dS^T Q
-  constexpr int ST = dkdv_stages<D>();
-  constexpr uint32_t ITEM_TILE = kWRows * DP * sizeof(bf16);  // whole boxes
-  constexpr uint32_t TILE = kWTile * DP * sizeof(bf16);
+  constexpr int ST = dkdv_stages<DQK, DV>();
+  // whole boxes: an item's K and V, a step's Q and dO
+  constexpr uint32_t ITEM_BYTES = kWRows * (DPK + DPV) * sizeof(bf16);
+  constexpr uint32_t TILE_BYTES = kWTile * (DPK + DPV) * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));  // [NA][128][64]
-  bf16* Vs = Ks + kWRows * DP;                               // [NA][128][64]
-  bf16* Qs = Vs + kWRows * DP;                               // [ST][NA][64][64]
-  bf16* dOs = Qs + ST * kWTile * DP;                         // [ST][NA][64][64]
-  float* stats = reinterpret_cast<float*>(dOs + ST * kWTile * DP);  // [ST][2][64]
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));  // [NAK][128][64]
+  bf16* Vs = Ks + kWRows * DPK;                              // [NAV][128][64]
+  bf16* Qs = Vs + kWRows * DPV;                              // [ST][NAK][64][64]
+  bf16* dOs = Qs + ST * kWTile * DPK;                        // [ST][NAV][64][64]
+  float* stats = reinterpret_cast<float*>(dOs + ST * kWTile * DPV);  // [ST][2][64]
   uint64_t* bars = reinterpret_cast<uint64_t*>(stats + ST * 128);
   uint64_t* kv_full = bars;          // K and V of an item
   uint64_t* kv_empty = bars + 1;     // one arrival per consumer thread
@@ -1272,19 +1360,19 @@ __global__ void __launch_bounds__(384, 1)
       q_tile_range(p, k_start, kWRows, kWTile, &lo, &hi);
       const int n_q = max(hi - lo, 0);
       if (n >= 1) mbar_wait(kv_empty, (n - 1) & 1);
-      mbar_expect_tx(kv_full, 2 * ITEM_TILE);
-      tma_rows<D, kWRows>(Ks, &tk, t.k_s_first, kv_full, k_start, hk, b);
-      tma_rows<D, kWRows>(Vs, &tv, t.v_s_first, kv_full, k_start, hk, b);
+      mbar_expect_tx(kv_full, ITEM_BYTES);
+      tma_rows<DQK, kWRows>(Ks, &tk, t.k_s_first, kv_full, k_start, hk, b);
+      tma_rows<DV, kWRows>(Vs, &tv, t.v_s_first, kv_full, k_start, hk, b);
       for (int i = 0; i < n_q * group; ++i, ++ring) {
         const int h = hk * group + i / n_q;
         const int q_start = (lo + i % n_q) * kWTile;
         const int s = ring % ST;
         if (ring >= ST) mbar_wait(empty + s, (ring / ST - 1) & 1);
-        mbar_expect_tx(full + s, 2 * TILE + 128 * sizeof(float));
-        tma_rows<D, kWTile>(Qs + s * kWTile * DP, &tq, t.q_s_first, full + s,
-                            q_start, h, b);
-        tma_rows<D, kWTile>(dOs + s * kWTile * DP, &tdo, t.do_s_first, full + s,
-                            q_start, h, b);
+        mbar_expect_tx(full + s, TILE_BYTES + 128 * sizeof(float));
+        tma_rows<DQK, kWTile>(Qs + s * kWTile * DPK, &tq, t.q_s_first, full + s,
+                              q_start, h, b);
+        tma_rows<DV, kWTile>(dOs + s * kWTile * DPV, &tdo, t.do_s_first, full + s,
+                             q_start, h, b);
         bulk_load(stats + s * 128,
                   p.delta + ((static_cast<long long>(b) * p.hq + h) * t.stat_blocks +
                              q_start / 64) * 128,
@@ -1310,9 +1398,11 @@ __global__ void __launch_bounds__(384, 1)
     const bf16* Vw = Vs + wg * 64 * 64;
     const int kw_start = k_start + wg * 64;
     const int krow0 = kw_start + warp * 16 + g;  // rows g and g + 8 of the warp's 16
-    float dk[OC / 2], dv[OC / 2];
+    float dk[OCK / 2], dv[OCV / 2];
 #pragma unroll
-    for (int i = 0; i < OC / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < OCK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < OCV / 2; ++i) dv[i] = 0.f;
     mbar_wait(kv_full, n & 1);
 
     // At head dims up to 80 dV and dK of a step run on while the next step's
@@ -1336,20 +1426,75 @@ __global__ void __launch_bounds__(384, 1)
         mbar_arrive(empty + s);
         continue;
       }
-      const bf16* Qt = Qs + s * kWTile * DP;
-      const bf16* dOt = dOs + s * kWTile * DP;
+      const bf16* Qt = Qs + s * kWTile * DPK;
+      const bf16* dOt = dOs + s * kWTile * DPV;
       const float* lse2 = stats + s * 128;  // base 2
       const float* dl = lse2 + 64;
+      const bool full_tile = tile_is_full(p, q_start, kWTile, kw_start, 64);
+      if constexpr (split_products<DQK, DV>()) {
+        // S^T = K Q^T: rows are keys, columns queries
+        float st[32];
+        wgmma_fence();
+        wgmma_ss_n64_first<0, 0>(st, kmajor<kWRows>(Kw, 0), kmajor<kWTile>(Qt, 0));
+#pragma unroll
+        for (int kk = 1; kk < KDK; ++kk)
+          wgmma_ss_n64<0, 0>(st, kmajor<kWRows>(Kw, kk), kmajor<kWTile>(Qt, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dk);
+        fence_regs(dv);
+        if (full_tile) {
+          dkdv_p_fragments<false>(pa, st, p, lse2, q_start + 2 * qd, krow0);
+        } else {
+          dkdv_p_fragments<true>(pa, st, p, lse2, q_start + 2 * qd, krow0);
+        }
+        // dP^T = V dO^T, and dV += P^T dO in the same batch
+        float dpt[32];
+        fence_regs(dv);
+#pragma unroll
+        for (int kk = 0; kk < KN; ++kk) fence_regs(pa[kk]);
+        wgmma_fence();
+        wgmma_ss_n64_first<0, 0>(dpt, kmajor<kWRows>(Vw, 0), kmajor<kWTile>(dOt, 0));
+#pragma unroll
+        for (int kk = 1; kk < KDV; ++kk)
+          wgmma_ss_n64<0, 0>(dpt, kmajor<kWRows>(Vw, kk), kmajor<kWTile>(dOt, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < KN; ++kk)
+          wgmma_rs_cols<OCV, kWTile * 128>(dv, pa[kk], mnmajor<kWTile>(dOt, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dpt);
+        fence_regs(dv);
+#pragma unroll
+        for (int kk = 0; kk < KN; ++kk) fence_regs(pa[kk]);
+        // dS^T, then dK += dS^T Q
+        dkdv_ds_fragments(sa, pa, dpt, p, dl, q_start + 2 * qd);
+        fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < KN; ++kk) fence_regs(sa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KN; ++kk)
+          wgmma_rs_cols<OCK, kWTile * 128>(dk, sa[kk], mnmajor<kWTile>(Qt, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+#pragma unroll
+        for (int kk = 0; kk < KN; ++kk) fence_regs(sa[kk]);
+        mbar_arrive(empty + s);
+        continue;
+      }
       // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
       float st[32], dpt[32];
       wgmma_fence();
       wgmma_ss_n64_first<0, 0>(st, kmajor<kWRows>(Kw, 0), kmajor<kWTile>(Qt, 0));
 #pragma unroll
-      for (int kk = 1; kk < KD; ++kk)
+      for (int kk = 1; kk < KDK; ++kk)
         wgmma_ss_n64<0, 0>(st, kmajor<kWRows>(Kw, kk), kmajor<kWTile>(Qt, kk), 1);
       wgmma_ss_n64_first<0, 0>(dpt, kmajor<kWRows>(Vw, 0), kmajor<kWTile>(dOt, 0));
 #pragma unroll
-      for (int kk = 1; kk < KD; ++kk)
+      for (int kk = 1; kk < KDV; ++kk)
         wgmma_ss_n64<0, 0>(dpt, kmajor<kWRows>(Vw, kk), kmajor<kWTile>(dOt, kk), 1);
       wgmma_commit();
       wgmma_wait<0>();  // S^T and dP^T, and the previous step's dV and dK
@@ -1367,7 +1512,7 @@ __global__ void __launch_bounds__(384, 1)
       // st[i]: key krow0 + 8 ((i / 2) % 2), query q_start + 8 (i / 4) +
       // 2 qd + i % 2; P^T and dS^T as the bf16 A fragments of the second
       // products
-      if (tile_is_full(p, q_start, kWTile, kw_start, 64)) {
+      if (full_tile) {
         dkdv_fragments<false>(pa, sa, st, dpt, p, lse2, dl, q_start + 2 * qd, krow0);
       } else {
         dkdv_fragments<true>(pa, sa, st, dpt, p, lse2, dl, q_start + 2 * qd, krow0);
@@ -1381,11 +1526,11 @@ __global__ void __launch_bounds__(384, 1)
       }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dv, pa[kk], mnmajor<kWTile>(dOt, kk));
+      for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OCV, kWTile * 128>(dv, pa[kk], mnmajor<kWTile>(dOt, kk));
 #pragma unroll
-      for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OC, kWTile * 128>(dk, sa[kk], mnmajor<kWTile>(Qt, kk));
+      for (int kk = 0; kk < KN; ++kk) wgmma_rs_cols<OCK, kWTile * 128>(dk, sa[kk], mnmajor<kWTile>(Qt, kk));
       wgmma_commit();
-      if constexpr (chain_products<D>()) {
+      if constexpr (chain_products<DQK, DV>()) {
         pending = s;
       } else {
         wgmma_wait<0>();
@@ -1415,15 +1560,16 @@ __global__ void __launch_bounds__(384, 1)
     for (int r = 0; r < 2; ++r) {
       const int kpos = krow0 + r * 8;
       if (kpos >= p.skv) continue;
-      bf16* dkr = static_cast<bf16*>(p.dk) + (out_base + kpos) * D + 2 * qd;
-      bf16* dvr = static_cast<bf16*>(p.dv) + (out_base + kpos) * D + 2 * qd;
+      bf16* dkr = static_cast<bf16*>(p.dk) + (out_base + kpos) * DQK + 2 * qd;
+      bf16* dvr = static_cast<bf16*>(p.dv) + (out_base + kpos) * DV + 2 * qd;
 #pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn) {
+      for (int nn = 0; nn < DQK / 8; ++nn)
         *reinterpret_cast<uint32_t*>(dkr + nn * 8) =
             pack_bf16(dk[4 * nn + 2 * r], dk[4 * nn + 2 * r + 1]);
+#pragma unroll
+      for (int nn = 0; nn < DV / 8; ++nn)
         *reinterpret_cast<uint32_t*>(dvr + nn * 8) =
             pack_bf16(dv[4 * nn + 2 * r], dv[4 * nn + 2 * r + 1]);
-      }
     }
   }
 }
@@ -1439,16 +1585,16 @@ cudaError_t launch(const BwdParams& p, dim3 grid, cudaStream_t stream) {
   return counted(cudaGetLastError(), kWhich);
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem_dq = dq_wgmma_smem_bytes<D>();
-  constexpr size_t smem_kv = dkdv_wgmma_smem_bytes<D>();
+  constexpr size_t smem_dq = dq_wgmma_smem_bytes<DQK, DV>();
+  constexpr size_t smem_kv = dkdv_wgmma_smem_bytes<DQK, DV>();
   static_assert(smem_dq <= 232448 && smem_kv <= 232448, "more than 227 KB");
   static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      fa_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dq_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_dq));
   static const cudaError_t attr_kv = cudaFuncSetAttribute(
-      fa_bwd_dkdv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_bwd_dkdv_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_kv));
   if (attr_dq != cudaSuccess) return attr_dq;
   if (attr_kv != cudaSuccess) return attr_kv;
@@ -1456,21 +1602,21 @@ cudaError_t launch_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
   // 64-row boxes for the tiles streamed through the ring
   BwdTma t;
   CUtensorMap tq128, tdo128, tk64, tv64, tk128, tv128, tq64, tdo64;
-  if (!map_bhsd(&tq128, p.q, batch, p.hq, p.sq, D, p.q_sb, p.q_sh, p.q_ss,
+  if (!map_bhsd(&tq128, p.q, batch, p.hq, p.sq, DQK, p.q_sb, p.q_sh, p.q_ss,
                 kWRows, &t.q_s_first) ||
-      !map_bhsd(&tq64, p.q, batch, p.hq, p.sq, D, p.q_sb, p.q_sh, p.q_ss,
+      !map_bhsd(&tq64, p.q, batch, p.hq, p.sq, DQK, p.q_sb, p.q_sh, p.q_ss,
                 kWTile, &t.q_s_first) ||
-      !map_bhsd(&tdo128, p.dout, batch, p.hq, p.sq, D, p.do_sb, p.do_sh,
+      !map_bhsd(&tdo128, p.dout, batch, p.hq, p.sq, DV, p.do_sb, p.do_sh,
                 p.do_ss, kWRows, &t.do_s_first) ||
-      !map_bhsd(&tdo64, p.dout, batch, p.hq, p.sq, D, p.do_sb, p.do_sh,
+      !map_bhsd(&tdo64, p.dout, batch, p.hq, p.sq, DV, p.do_sb, p.do_sh,
                 p.do_ss, kWTile, &t.do_s_first) ||
-      !map_bhsd(&tk128, p.k, batch, p.hkv, p.skv, D, p.k_sb, p.k_sh, p.k_ss,
+      !map_bhsd(&tk128, p.k, batch, p.hkv, p.skv, DQK, p.k_sb, p.k_sh, p.k_ss,
                 kWRows, &t.k_s_first) ||
-      !map_bhsd(&tk64, p.k, batch, p.hkv, p.skv, D, p.k_sb, p.k_sh, p.k_ss,
+      !map_bhsd(&tk64, p.k, batch, p.hkv, p.skv, DQK, p.k_sb, p.k_sh, p.k_ss,
                 kWTile, &t.k_s_first) ||
-      !map_bhsd(&tv128, p.v, batch, p.hkv, p.skv, D, p.v_sb, p.v_sh, p.v_ss,
+      !map_bhsd(&tv128, p.v, batch, p.hkv, p.skv, DV, p.v_sb, p.v_sh, p.v_ss,
                 kWRows, &t.v_s_first) ||
-      !map_bhsd(&tv64, p.v, batch, p.hkv, p.skv, D, p.v_sb, p.v_sh, p.v_ss,
+      !map_bhsd(&tv64, p.v, batch, p.hkv, p.skv, DV, p.v_sb, p.v_sh, p.v_ss,
                 kWTile, &t.v_s_first))
     return cudaErrorInvalidValue;
   t.batch = batch;
@@ -1479,57 +1625,67 @@ cudaError_t launch_wgmma(const BwdParams& p, int batch, cudaStream_t stream) {
   // dQ first: it writes the row statistics that dK/dV reads
   t.n_tiles = (p.sq + kWRows - 1) / kWRows;
   t.n_items = t.n_tiles * p.hq * batch;
-  fa_bwd_dq_wgmma<D><<<t.n_items < n_sm ? t.n_items : n_sm, 288, smem_dq, stream>>>(
+  fa_bwd_dq_wgmma<DQK, DV><<<t.n_items < n_sm ? t.n_items : n_sm,
+                             dq_threads<DQK, DV>(), smem_dq, stream>>>(
       tq128, tdo128, tk64, tv64, p, t);
   const cudaError_t e = counted(cudaGetLastError(), kDqWgmma);
   if (e != cudaSuccess) return e;
   t.n_tiles = (p.skv + kWRows - 1) / kWRows;
   t.n_items = t.n_tiles * p.hkv * batch;
-  fa_bwd_dkdv_wgmma<D><<<t.n_items < n_sm ? t.n_items : n_sm, 384, smem_kv, stream>>>(
-      tk128, tv128, tq64, tdo64, p, t);
+  fa_bwd_dkdv_wgmma<DQK, DV><<<t.n_items < n_sm ? t.n_items : n_sm, 384, smem_kv,
+                               stream>>>(tk128, tv128, tq64, tdo64, p, t);
   return counted(cudaGetLastError(), kDkdvWgmma);
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_d(const BwdParams& p, int batch, int variant, cudaStream_t s) {
-  if (variant == kVarWgmma) return launch_wgmma<D>(p, batch, s);
+  if (variant == kVarWgmma) return launch_wgmma<DQK, DV>(p, batch, s);
   const dim3 rows((p.sq + 7) / 8, p.hq, batch);
   const dim3 k_tiles((p.skv + kTile - 1) / kTile, p.hkv, batch);
   const dim3 q_tiles((p.sq + kTile - 1) / kTile, p.hq, batch);
   cudaError_t e;
   if (variant == kVarMma) {
-    e = launch<fa_bwd_delta<bf16, D>, kDelta, 256, 0>(p, rows, s);
-    if (e != cudaSuccess) return e;
-    e = launch<fa_bwd_dkdv_mma<D>, kDkdvMma, 128, mma_dkdv_smem_bytes<D>()>(p, k_tiles, s);
-    if (e != cudaSuccess) return e;
-    return launch<fa_bwd_dq_mma<D>, kDqMma, 128, mma_dq_smem_bytes<D>()>(p, q_tiles, s);
+    if constexpr (DQK == DV) {
+      constexpr int D = DQK;
+      e = launch<fa_bwd_delta<bf16, D>, kDelta, 256, 0>(p, rows, s);
+      if (e != cudaSuccess) return e;
+      e = launch<fa_bwd_dkdv_mma<D>, kDkdvMma, 128, mma_dkdv_smem_bytes<D>()>(p, k_tiles, s);
+      if (e != cudaSuccess) return e;
+      return launch<fa_bwd_dq_mma<D>, kDqMma, 128, mma_dq_smem_bytes<D>()>(p, q_tiles, s);
+    } else {
+      return cudaErrorInvalidValue;  // the mma.sync design has one head dim
+    }
   }
-  e = launch<fa_bwd_delta<float, D>, kDelta, 256, 0>(p, rows, s);
+  constexpr size_t smem = simt_smem_bytes<DQK, DV>();
+  e = launch<fa_bwd_delta<float, DV>, kDelta, 256, 0>(p, rows, s);
   if (e != cudaSuccess) return e;
-  e = launch<fa_bwd_dkdv_simt<D>, kDkdvSimt, 256, simt_smem_bytes<D>()>(p, k_tiles, s);
+  e = launch<fa_bwd_dkdv_simt<DQK, DV>, kDkdvSimt, 256, smem>(p, k_tiles, s);
   if (e != cudaSuccess) return e;
-  return launch<fa_bwd_dq_simt<D>, kDqSimt, 256, simt_smem_bytes<D>()>(p, q_tiles, s);
+  return launch<fa_bwd_dq_simt<DQK, DV>, kDqSimt, 256, smem>(p, q_tiles, s);
 }
 
 }  // namespace
 
 // variant: 0 = fa_bwd_simt (float32 tensors), 1 = fa_bwd_bf16_mma, 2 =
-// fa_bwd_wgmma (bfloat16 tensors), chosen by the wrapper.  q, k, v, o and dout come with their strides in elements (the last
+// fa_bwd_wgmma (bfloat16 tensors), chosen by the wrapper.  d is the head dim
+// of q and k, dv that of v, o and dout: equal (32, 64, 80 or 128), or (192,
+// 128).  q, k, v, o and dout come with their strides in elements (the last
 // dimension of each has stride 1; for bfloat16 every base and every row start
 // is on a 16-byte boundary); lse [B, Hq, Sq] fp32 contiguous is the
 // forward's; delta is fp32 scratch: [B, Hq, Sq] delta for variants 0 and 1,
 // for variant 2 the row statistics [B, Hq, Sq rounded up to 128 / 64, 2, 64]
-// (lse in base 2, then delta, 64 rows a block).  dq [B, Hq, Sq, D] and dk, dv
-// [B, Hkv, Skv, D] are written contiguous, in the inputs' type.  Launches
+// (lse in base 2, then delta, 64 rows a block).  dq [B, Hq, Sq, D], dk [B,
+// Hkv, Skv, D] and dv [B, Hkv, Skv, Dv] are written contiguous, in the
+// inputs' type.  Launches
 // fa_bwd_delta, then the dK/dV kernel, then the dQ kernel (variants 0, 1), or
 // fa_bwd_dq_wgmma then fa_bwd_dkdv_wgmma (variant 2), on `stream`.  Returns
 // the first failing launch's cudaError_t as an int (0 = success;
-// cudaErrorInvalidValue for a head dim or variant that has no kernel, or a
+// cudaErrorInvalidValue for head dims or a variant that have no kernel, or a
 // tensor the driver refuses to map).
 extern "C" int fa_bwd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const void* lse, void* delta, void* dq,
                       void* dk, void* dv, int batch, int hq, int hkv, int sq,
-                      int skv, int d, long long q_sb, long long q_sh,
+                      int skv, int d, int d_v, long long q_sb, long long q_sh,
                       long long q_ss, long long k_sb, long long k_sh,
                       long long k_ss, long long v_sb, long long v_sh,
                       long long v_ss, long long o_sb, long long o_sh,
@@ -1552,11 +1708,14 @@ extern "C" int fa_bwd(const void* q, const void* k, const void* v, const void* o
   if (variant != kVarSimt && variant != kVarMma && variant != kVarWgmma)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 192 && d_v == 128)
+    return static_cast<int>(launch_d<192, 128>(p, batch, variant, s));
+  if (d != d_v) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 32: return static_cast<int>(launch_d<32>(p, batch, variant, s));
-    case 64: return static_cast<int>(launch_d<64>(p, batch, variant, s));
-    case 80: return static_cast<int>(launch_d<80>(p, batch, variant, s));
-    case 128: return static_cast<int>(launch_d<128>(p, batch, variant, s));
+    case 32: return static_cast<int>(launch_d<32, 32>(p, batch, variant, s));
+    case 64: return static_cast<int>(launch_d<64, 64>(p, batch, variant, s));
+    case 80: return static_cast<int>(launch_d<80, 80>(p, batch, variant, s));
+    case 128: return static_cast<int>(launch_d<128, 128>(p, batch, variant, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

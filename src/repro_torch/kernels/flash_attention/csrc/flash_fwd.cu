@@ -5,16 +5,20 @@
 // `flash_attention_fwd`, public wrapper `ops.flash_attention`): it computes
 // softmax(Q K^T / sqrt(D) + mask) V by online softmax over (q tile x kv tile)
 // blocks, with causal, sliding-window and ragged-tail masks, and gives 0 for a
-// row that sees no key.
+// row that sees no key.  Q and K have head dim D (DQK below), V and the
+// output Dv (DV): equal, or MLA's (192, 128) (deepseek-v2-lite-16b: a nope
+// part of 128 and a rope part of 64 against values of 128), whose scale stays
+// 1 / sqrt(D) of Q and K.
 //
 // What bounds it on this card.  Each input is read once and the output
 // written once, so at a prefill shape (Sq = Skv in the thousands, D = 64) the
 // kernel does hundreds of operations per byte: it is bound by operations, not
-// by bytes.  Three kernels, the one that runs fixed by (dtype, head dim); the
-// rule is the wrapper's `kernel.variant()`, which passes its choice in:
-//  * `fa_fwd_wgmma`, bf16 at every head dim (32, 64, 80, 128: tinyllama-1.1b;
-//    stablelm-3b; llama3.2-3b, nemotron-4-15b): Hopper's own path to the
-//    tensor cores.
+// by bytes.  Three kernels, the one that runs fixed by (dtype, head dims);
+// the rule is the wrapper's `kernel.variant()`, which passes its choice in:
+//  * `fa_fwd_wgmma`, bf16 at every pair of head dims ((32, 32), (64, 64),
+//    (80, 80), (128, 128): tinyllama-1.1b; stablelm-3b; llama3.2-3b,
+//    nemotron-4-15b; (192, 128): deepseek-v2-lite-16b's MLA): Hopper's own
+//    path to the tensor cores.
 //    A persistent grid (one block per SM, whose fixed cost is then paid
 //    once, not per q tile); two warpgroups share each K/V tile (128 q rows
 //    an item, 128 kv rows a tile) and run free of each other, so one
@@ -24,7 +28,7 @@
 //    one warpgroup do not overlap: issuing Q K^T of the next tile with P V
 //    of this one measured slower at head dim 64, with the wgmma kept
 //    pipelined or not (PERF.md).
-//  * `fa_fwd_bf16_mma`, bf16 at every head dim, reached only by an explicit
+//  * `fa_fwd_bf16_mma`, bf16 at the equal pairs, reached only by an explicit
 //    `variant=` (the earlier design, timed against the wgmma one): both
 //    products on `mma.sync.m16n8k16` (fp32 accumulate) with the
 //    probabilities in registers; K and V tiles arrive by `cp.async` while
@@ -153,18 +157,23 @@ __device__ __forceinline__ void store_lse(const FaParams& p, int b, int h,
 // columns tx + 16*j of the logits tile and of the output.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DQK, int DV>
+constexpr size_t simt_smem_bytes() {
+  return sizeof(float) * ((64 + BN) * (DQK + 1) + BN * DV + 64 * (BN + 4));
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256) fa_fwd_simt(FaParams p) {
-  constexpr int BM = 64;       // q rows per block
-  constexpr int LDQ = D + 1;   // odd row stride: column reads hit distinct banks
-  constexpr int LDP = BN + 4;  // the two row groups of a warp land 16 banks apart
-  constexpr int NJ = BN / 16;  // logit columns per thread
-  constexpr int ND = D / 16;   // output columns per thread
+  constexpr int BM = 64;         // q rows per block
+  constexpr int LDQ = DQK + 1;   // odd row stride: column reads hit distinct banks
+  constexpr int LDP = BN + 4;    // the two row groups of a warp land 16 banks apart
+  constexpr int NJ = BN / 16;    // logit columns per thread
+  constexpr int ND = DV / 16;    // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [BM][LDQ]
   float* Ks = Qs + BM * LDQ;                       // [BN][LDQ]
-  float* Vs = Ks + BN * LDQ;                       // [BN][D]
-  float* Ps = Vs + BN * D;                         // [BM][LDP]
+  float* Vs = Ks + BN * LDQ;                       // [BN][DV]
+  float* Ps = Vs + BN * DV;                        // [BM][LDP]
 
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -178,8 +187,8 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(FaParams p) {
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  for (int i = tid; i < BM * D; i += 256) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < BM * DQK; i += 256) {
+    const int r = i / DQK, d = i % DQK;
     const int qpos = q_start + r;
     Qs[r * LDQ + d] = qpos < p.sq ? qg[qpos * p.q_ss + d] : 0.f;
   }
@@ -199,12 +208,15 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(FaParams p) {
   for (int kt = lo; kt < hi; ++kt) {
     const int k_start = kt * BN;
     __syncthreads();  // the previous tile's K and V are no longer read
-    for (int i = tid; i < BN * D; i += 256) {
-      const int r = i / D, d = i % D;
+    for (int i = tid; i < BN * DQK; i += 256) {
+      const int r = i / DQK, d = i % DQK;
       const int kpos = k_start + r;
-      const bool in = kpos < p.skv;
-      Ks[r * LDQ + d] = in ? kg[kpos * p.k_ss + d] : 0.f;
-      Vs[r * D + d] = in ? vg[kpos * p.v_ss + d] : 0.f;
+      Ks[r * LDQ + d] = kpos < p.skv ? kg[kpos * p.k_ss + d] : 0.f;
+    }
+    for (int i = tid; i < BN * DV; i += 256) {
+      const int r = i / DV, d = i % DV;
+      const int kpos = k_start + r;
+      Vs[r * DV + d] = kpos < p.skv ? vg[kpos * p.v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -214,7 +226,7 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(FaParams p) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[4], kv[NJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * LDQ + d];
@@ -268,7 +280,7 @@ __global__ void __launch_bounds__(256) fa_fwd_simt(FaParams p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * LDP + n];
 #pragma unroll
-      for (int j = 0; j < ND; ++j) vv[j] = Vs[n * D + tx + 16 * j];
+      for (int j = 0; j < ND; ++j) vv[j] = Vs[n * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -512,12 +524,16 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16_mma(FaParams p) {
 // swizzle in whole 64-column atoms: at head dims 32 and 80 the last atom is
 // zero-filled past D, see padded() in hopper_sm90.cuh; one mbarrier each for
 // K and for V, one for the consumers' release), running on into the next item
-// while the consumers finish this one; Q has two buffers for the same reason.
+// while the consumers finish this one; Q has q_buffers() buffers, two where
+// they fit, for the same reason.
 // S = Q K^T is wgmma with both operands in shared memory (K-major, as stored;
-// D / 16 k-steps, none over the zeros); the softmax runs on the accumulator in
-// registers; P, rounded to bf16, stays in registers as the A operand of O +=
-// P V, whose B operand V is MN-major (transpose bit set; at D 80 an N 64
-// wgmma on the first atom and an N 16 one on the second, at D 32 one N 32).
+// DQK / 16 k-steps, none over the zeros); the softmax runs on the accumulator
+// in registers; P, rounded to bf16, stays in registers as the A operand of O
+// += P V, whose B operand V is MN-major (transpose bit set; at DV 80 an N 64
+// wgmma on the first atom and an N 16 one on the second, at DV 32 one N 32).
+// MLA's (192, 128) takes S over three 64-column atoms (12 k-steps) and P V
+// and the output over two: its registers are head dim 128's (the output's
+// 64 a thread), only its Q and K tiles are wider (see q_buffers()).
 // The two warpgroups run free of each other, so the tensor cores serve one
 // while the other runs its softmax: turns taken on named barriers
 // ("ping-pong") measured 4.5 % slower at both head dims (PERF.md).  The
@@ -528,9 +544,18 @@ __global__ void __launch_bounds__(128) fa_fwd_bf16_mma(FaParams p) {
 constexpr int WBM = 128;  // q rows per item
 constexpr int WBN = 128;  // kv rows per tile
 
-template <int D>
+// Buffers of Q and stages of the K/V ring: what fits in 227 KB.  At (192,
+// 128) a Q tile is 48 KB and a stage 48 + 32 KB, so two Q buffers and two
+// stages would take 256 KB; Q keeps one buffer (the next item's Q waits for
+// this item's end, a bubble an item) and the ring its two stages (a stage
+// is reloaded while the other is computed on, every tile).
+template <int DQK, int DV>
+__host__ __device__ constexpr int q_buffers() {
+  return DQK == DV ? 2 : 1;
+}
+template <int DQK, int DV>
 __host__ __device__ constexpr int kv_stages() {
-  return padded<D>() == 64 ? 3 : 2;  // what fits beside two Q buffers in 227 KB
+  return DQK == DV && padded<DQK>() == 64 ? 3 : 2;
 }
 
 struct FaTma {
@@ -540,13 +565,15 @@ struct FaTma {
   int q_s_first, k_s_first, v_s_first;
 };
 
-template <int D>
+template <int DQK, int DV>
 constexpr size_t wgmma_smem_bytes() {
-  // alignment slack; Q, two buffers of [128][padded D]; K and V, kv_stages()
-  // stages of [128][padded D] each; barriers
-  constexpr int DP = padded<D>();
-  return 1024 + sizeof(__nv_bfloat16) * (2 * WBM * DP + 2 * kv_stages<D>() * WBN * DP) +
-         8 * (4 + 3 * kv_stages<D>());
+  // alignment slack; Q, q_buffers() buffers of [128][padded DQK]; K and V,
+  // kv_stages() stages of [128][padded DQK] and [128][padded DV]; barriers
+  constexpr int QB = q_buffers<DQK, DV>(), ST = kv_stages<DQK, DV>();
+  return 1024 +
+         sizeof(__nv_bfloat16) *
+             (QB * WBM * padded<DQK>() + ST * WBN * (padded<DQK>() + padded<DV>())) +
+         8 * (2 * QB + 3 * ST);
 }
 
 // Item j of the list: q tiles slowest and longest first, then batch, then head.
@@ -564,35 +591,39 @@ __device__ __forceinline__ FaItem fa_item(const FaParams& p, const FaTma& t,
   return it;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(288, 1)
     fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, FaParams p,
                  FaTma t) {
   using bf16 = __nv_bfloat16;
-  constexpr int NA = atoms<D>();  // 64-column atoms of a row, the last maybe part
-  constexpr int DP = padded<D>();  // their columns in shared memory
-  constexpr int KD = D / 16;     // k-steps of Q K^T
+  // 64-column atoms of a row of Q and K, and of V (the last maybe part), and
+  // their columns in shared memory
+  constexpr int NAK = atoms<DQK>(), NAV = atoms<DV>();
+  constexpr int DPK = padded<DQK>(), DPV = padded<DV>();
+  constexpr int KD = DQK / 16;   // k-steps of Q K^T
   constexpr int KN = WBN / 16;   // k-steps of P V
   constexpr int NS = WBN / 8;    // 8-column groups of the logits
-  constexpr int ST = kv_stages<D>();
-  constexpr uint32_t TILE = WBN * DP * sizeof(bf16);  // the whole box
+  constexpr int QB = q_buffers<DQK, DV>();
+  constexpr int ST = kv_stages<DQK, DV>();
+  // the whole boxes
+  constexpr uint32_t TILE_K = WBN * DPK * sizeof(bf16), TILE_V = WBN * DPV * sizeof(bf16);
   extern __shared__ unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // [2][NA][128][64]
-  bf16* Ks = Qs + 2 * WBM * DP;                              // [ST][NA][128][64]
-  bf16* Vs = Ks + ST * WBN * DP;                             // [ST][NA][128][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + ST * WBN * DP);
-  uint64_t* q_full = bars;               // [2]
-  uint64_t* q_empty = bars + 2;          // [2], one arrival per consumer thread
-  uint64_t* full_k = bars + 4;           // [ST]
-  uint64_t* full_v = bars + 4 + ST;      // [ST]
-  uint64_t* empty = bars + 4 + 2 * ST;   // [ST], one arrival per consumer thread
+  bf16* Qs = reinterpret_cast<bf16*>(align1024(smem_raw));  // [QB][NAK][128][64]
+  bf16* Ks = Qs + QB * WBM * DPK;                            // [ST][NAK][128][64]
+  bf16* Vs = Ks + ST * WBN * DPK;                            // [ST][NAV][128][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + ST * WBN * DPV);
+  uint64_t* q_full = bars;                     // [QB]
+  uint64_t* q_empty = bars + QB;               // [QB], one arrival per consumer thread
+  uint64_t* full_k = bars + 2 * QB;            // [ST]
+  uint64_t* full_v = bars + 2 * QB + ST;       // [ST]
+  uint64_t* empty = bars + 2 * QB + 2 * ST;    // [ST], one arrival per consumer thread
 
   const int tid = threadIdx.x;
   const int n_items = t.n_q_tiles * p.hq * t.batch;
   if (tid == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < QB; ++i) {
       mbar_init(q_full + i, 1);
       mbar_init(q_empty + i, 256);
     }
@@ -609,12 +640,11 @@ __global__ void __launch_bounds__(288, 1)
   if (warp_id == 8) {
     // the producer warp; one lane issues every copy, item after item
     if (tid != 256) return;
-    // rows [pos, pos + 128) of one head, every 64-column atom (tiles of Q, K
+    // rows [pos, pos + 128) of one head, `na` 64-column atoms (tiles of Q, K
     // and V all have 128 rows)
-    auto load = [&](const CUtensorMap* map, int s_first, bf16* dst,
+    auto load = [&](const CUtensorMap* map, int s_first, int na, bf16* dst,
                     uint64_t* bar, int pos, int head, int b) {
-#pragma unroll
-      for (int a = 0; a < NA; ++a)
+      for (int a = 0; a < na; ++a)
         tma_load_4d(dst + a * 128 * 64, map, bar, a * 64, s_first ? pos : head,
                     s_first ? head : pos, b);
     };
@@ -623,17 +653,18 @@ __global__ void __launch_bounds__(288, 1)
     for (int j = blockIdx.x; j < n_items; j += gridDim.x, ++n) {
       const FaItem it = fa_item(p, t, j);
       const int hk = it.h / (p.hq / p.hkv);
-      const int qb = n & 1;
-      if (n >= 2) mbar_wait(q_empty + qb, (n / 2 - 1) & 1);
-      mbar_expect_tx(q_full + qb, WBM * DP * sizeof(bf16));
-      load(&tq, t.q_s_first, Qs + qb * WBM * DP, q_full + qb, it.q_start, it.h, it.b);
+      const int qb = n % QB;
+      if (n >= QB) mbar_wait(q_empty + qb, (n / QB - 1) & 1);
+      mbar_expect_tx(q_full + qb, WBM * DPK * sizeof(bf16));
+      load(&tq, t.q_s_first, NAK, Qs + qb * WBM * DPK, q_full + qb, it.q_start,
+           it.h, it.b);
       for (int kt = it.lo; kt < it.hi; ++kt, ++ring) {
         const int s = ring % ST;
         if (ring >= ST) mbar_wait(empty + s, (ring / ST - 1) & 1);
-        mbar_expect_tx(full_k + s, TILE);
-        load(&tk, t.k_s_first, Ks + s * WBN * DP, full_k + s, kt * WBN, hk, it.b);
-        mbar_expect_tx(full_v + s, TILE);
-        load(&tv, t.v_s_first, Vs + s * WBN * DP, full_v + s, kt * WBN, hk, it.b);
+        mbar_expect_tx(full_k + s, TILE_K);
+        load(&tk, t.k_s_first, NAK, Ks + s * WBN * DPK, full_k + s, kt * WBN, hk, it.b);
+        mbar_expect_tx(full_v + s, TILE_V);
+        load(&tv, t.v_s_first, NAV, Vs + s * WBN * DPV, full_v + s, kt * WBN, hk, it.b);
       }
     }
     return;
@@ -645,23 +676,23 @@ __global__ void __launch_bounds__(288, 1)
   for (int j = blockIdx.x; j < n_items; j += gridDim.x, ++n) {
     const FaItem it = fa_item(p, t, j);
     const int n_tiles = it.hi - it.lo;  // 0 or less: no row sees a key
-    const int qb = n & 1;
-    const bf16* Qw = Qs + qb * WBM * DP + wg * 64 * 64;  // this warpgroup's rows
-    float o[D / 2];
+    const int qb = n % QB;
+    const bf16* Qw = Qs + qb * WBM * DPK + wg * 64 * 64;  // this warpgroup's rows
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     // rows g and g + 8 of the warp's 16; m is in units of the raw logit
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
     const int qw_start = it.q_start + wg * 64;
     const int row0 = qw_start + warp * 16 + g;
-    mbar_wait(q_full + qb, (n / 2) & 1);
+    mbar_wait(q_full + qb, (n / QB) & 1);
 
     for (int i = 0; i < n_tiles; ++i, ++ring) {
       const int s = ring % ST;
       const uint32_t ph = (ring / ST) & 1;
       const int k_start = (it.lo + i) * WBN;
-      const bf16* Kt = Ks + s * WBN * DP;
+      const bf16* Kt = Ks + s * WBN * DPK;
 
       // S = Q K^T; the first k-step only writes the accumulator
       float sc[WBN / 2];
@@ -732,7 +763,7 @@ __global__ void __launch_bounds__(288, 1)
         l[r] = l[r] * corr[r] + sum[r];
       }
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+      for (int e = 0; e < DV / 2; ++e) o[e] *= corr[(e >> 1) & 1];
 
       // O += P V
       mbar_wait(full_v + s, ph);
@@ -743,8 +774,8 @@ __global__ void __launch_bounds__(288, 1)
 #pragma unroll
       for (int kk = 0; kk < KN; ++kk) {
         // rows 16kk .. 16kk + 15 of V; the second atom is LBO away
-        const uint64_t dv = sw128_desc(Vs + s * WBN * DP + kk * 16 * 64, WBN * 128, 1024);
-        wgmma_rs_cols<D, WBN * 128>(o, pa[kk], dv);
+        const uint64_t dv = sw128_desc(Vs + s * WBN * DPV + kk * 16 * 64, WBN * 128, 1024);
+        wgmma_rs_cols<DV, WBN * 128>(o, pa[kk], dv);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -765,7 +796,7 @@ __global__ void __launch_bounds__(288, 1)
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       bf16* orow = og + qpos * p.o_ss + 2 * qd;
 #pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn) {
+      for (int nn = 0; nn < DV / 8; ++nn) {
         *reinterpret_cast<uint32_t*>(orow + nn * 8) =
             pack_bf16(o[4 * nn + 2 * r] * inv, o[4 * nn + 2 * r + 1] * inv);
       }
@@ -786,20 +817,21 @@ cudaError_t launch(const FaParams& p, int batch, cudaStream_t stream) {
   return counted(cudaGetLastError(), kWhich);
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_wgmma(const FaParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = wgmma_smem_bytes<D>();
+  constexpr size_t smem = wgmma_smem_bytes<DQK, DV>();
+  static_assert(smem <= 232448, "more than 227 KB");
   static const cudaError_t attr = cudaFuncSetAttribute(
-      fa_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_fwd_wgmma<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return attr;
   FaTma t;
   CUtensorMap tq, tk, tv;
-  if (!map_bhsd(&tq, p.q, batch, p.hq, p.sq, D, p.q_sb, p.q_sh, p.q_ss, WBM,
+  if (!map_bhsd(&tq, p.q, batch, p.hq, p.sq, DQK, p.q_sb, p.q_sh, p.q_ss, WBM,
                 &t.q_s_first) ||
-      !map_bhsd(&tk, p.k, batch, p.hkv, p.skv, D, p.k_sb, p.k_sh, p.k_ss, WBN,
+      !map_bhsd(&tk, p.k, batch, p.hkv, p.skv, DQK, p.k_sb, p.k_sh, p.k_ss, WBN,
                 &t.k_s_first) ||
-      !map_bhsd(&tv, p.v, batch, p.hkv, p.skv, D, p.v_sb, p.v_sh, p.v_ss, WBN,
+      !map_bhsd(&tv, p.v, batch, p.hkv, p.skv, DV, p.v_sb, p.v_sh, p.v_ss, WBN,
                 &t.v_s_first))
     return cudaErrorInvalidValue;
   t.n_q_tiles = (p.sq + WBM - 1) / WBM;
@@ -808,35 +840,40 @@ cudaError_t launch_wgmma(const FaParams& p, int batch, cudaStream_t stream) {
   const int n_sm = sm_count();
   const long long n_items = static_cast<long long>(t.n_q_tiles) * p.hq * batch;
   const unsigned grid = static_cast<unsigned>(n_items < n_sm ? n_items : n_sm);
-  fa_fwd_wgmma<D><<<grid, 288, smem, stream>>>(tq, tk, tv, p, t);
+  fa_fwd_wgmma<DQK, DV><<<grid, 288, smem, stream>>>(tq, tk, tv, p, t);
   return counted(cudaGetLastError(), kWgmma);
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_d(const FaParams& p, int batch, int variant,
                      cudaStream_t stream) {
-  if (variant == kWgmma) return launch_wgmma<D>(p, batch, stream);
+  if (variant == kWgmma) return launch_wgmma<DQK, DV>(p, batch, stream);
   if (variant == kMma) {
-    constexpr size_t smem = sizeof(__nv_bfloat16) * (64 + 4 * BN) * (D + 8);
-    return launch<fa_fwd_bf16_mma<D>, kMma, 128, smem>(p, batch, stream);
+    if constexpr (DQK == DV) {
+      constexpr size_t smem = sizeof(__nv_bfloat16) * (64 + 4 * BN) * (DQK + 8);
+      return launch<fa_fwd_bf16_mma<DQK>, kMma, 128, smem>(p, batch, stream);
+    } else {
+      return cudaErrorInvalidValue;  // the mma.sync design has one head dim
+    }
   }
-  constexpr size_t smem =
-      sizeof(float) * ((64 + BN) * (D + 1) + BN * D + 64 * (BN + 4));
-  return launch<fa_fwd_simt<D>, kSimt, 256, smem>(p, batch, stream);
+  return launch<fa_fwd_simt<DQK, DV>, kSimt, 256, simt_smem_bytes<DQK, DV>()>(
+      p, batch, stream);
 }
 
 }  // namespace
 
 // variant: the kernel to launch, chosen by the wrapper from dtype and head
-// dim: 0 = fa_fwd_simt (float32 tensors), 1 = fa_fwd_bf16_mma, 2 =
-// fa_fwd_wgmma (bfloat16 tensors).  Strides are in elements; the last
-// dimension of every tensor has stride 1.  For bfloat16 every pointer and every
-// row start must be 16-byte aligned.  `lse`: null, or a contiguous [B, Hq, Sq]
-// fp32 buffer that receives each row's log-sum-exp.  Returns the launch's
-// cudaError_t as an int (0 = success; cudaErrorInvalidValue for a head dim or
-// variant that has no kernel).
+// dims: 0 = fa_fwd_simt (float32 tensors), 1 = fa_fwd_bf16_mma, 2 =
+// fa_fwd_wgmma (bfloat16 tensors).  d is the head dim of q and k, dv that of
+// v and o: equal (32, 64, 80 or 128), or (192, 128).  Strides are in
+// elements; the last dimension of every tensor has stride 1.  For bfloat16
+// every pointer and every row start must be 16-byte aligned.  `lse`: null, or
+// a contiguous [B, Hq, Sq] fp32 buffer that receives each row's log-sum-exp.
+// Returns the launch's cudaError_t as an int (0 = success;
+// cudaErrorInvalidValue for head dims or a variant that have no kernel).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
-                      void* lse, int batch, int hq, int hkv, int sq, int skv, int d,
+                      void* lse, int batch, int hq, int hkv, int sq, int skv,
+                      int d, int dv,
                       long long q_sb, long long q_sh, long long q_ss,
                       long long k_sb, long long k_sh, long long k_ss,
                       long long v_sb, long long v_sh, long long v_ss,
@@ -855,11 +892,14 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* o,
   if (variant != kSimt && variant != kMma && variant != kWgmma)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 192 && dv == 128)
+    return static_cast<int>(launch_d<192, 128>(p, batch, variant, s));
+  if (d != dv) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
-    case 32: return static_cast<int>(launch_d<32>(p, batch, variant, s));
-    case 64: return static_cast<int>(launch_d<64>(p, batch, variant, s));
-    case 80: return static_cast<int>(launch_d<80>(p, batch, variant, s));
-    case 128: return static_cast<int>(launch_d<128>(p, batch, variant, s));
+    case 32: return static_cast<int>(launch_d<32, 32>(p, batch, variant, s));
+    case 64: return static_cast<int>(launch_d<64, 64>(p, batch, variant, s));
+    case 80: return static_cast<int>(launch_d<80, 80>(p, batch, variant, s));
+    case 128: return static_cast<int>(launch_d<128, 128>(p, batch, variant, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -12,10 +12,10 @@ from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention
 
 class FlashAttention(torch.autograd.Function):
     """Attention whose backward is the hand-written backward kernel (its plain
-    version for CPU tensors).  The forward keeps q, k, v, its output and the
-    per-row log-sum-exp; under ``torch.utils.checkpoint`` the forward runs
-    again in the backward pass, and the tensors it saves then are the ones the
-    backward reads."""
+    version for CPU tensors): dq and dk at q's head dim, dv at v's.  The
+    forward keeps q, k, v, its output and the per-row log-sum-exp; under
+    ``torch.utils.checkpoint`` the forward runs again in the backward pass,
+    and the tensors it saves then are the ones the backward reads."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
@@ -46,13 +46,15 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(
     q: torch.Tensor,            # [B, Hq, Sq, D]
     k: torch.Tensor,            # [B, Hkv, Skv, D]
-    v: torch.Tensor,
+    v: torch.Tensor,            # [B, Hkv, Skv, Dv]
     *,
     causal: bool = True,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """GQA flash attention.  A CUDA tensor goes to the CUDA kernels, which
-    launch or raise; a CPU tensor goes to the plain versions.  When grad mode
+    """GQA flash attention -> [B, Hq, Sq, Dv].  A CUDA tensor goes to the
+    CUDA kernels, which launch or raise (they take the (D, Dv) pairs of
+    ``kernel.HEAD_DIM_PAIRS``); a CPU tensor goes to the plain versions,
+    which take any.  When grad mode
     is on and an input requires grad, the call goes through
     ``FlashAttention``, whose backward is the backward kernel.  The tile sizes
     are the kernels' own constants, so the JAX wrapper's ``q_block``,

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the flash-attention kernels, forward and backward.
 
 Naive full-materialization attention: what the CPU tests run and what the
-CUDA kernels are held against on the card.
+CUDA kernels are held against on the card.  q and k have head dim D, v and
+the output Dv, any pair (the kernels take those of
+``kernel.HEAD_DIM_PAIRS``); the scale is 1 / sqrt(D).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ def _mask(sq: int, skv: int, causal: bool, window: Optional[int],
 def attention_ref(
     q: torch.Tensor,            # [B, Hq, Sq, D]
     k: torch.Tensor,            # [B, Hkv, Skv, D]
-    v: torch.Tensor,            # [B, Hkv, Skv, D]
+    v: torch.Tensor,            # [B, Hkv, Skv, Dv]
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -56,7 +58,7 @@ def attention_ref(
     probs = torch.softmax(logits, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)   # a row that sees no key gives 0
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
-    out = out.reshape(B, Hq, Sq, D).to(q.dtype)
+    out = out.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
     if not return_lse:
         return out
     lse = torch.logsumexp(logits, dim=-1).reshape(B, Hq, Sq)
@@ -66,10 +68,10 @@ def attention_ref(
 def attention_bwd_ref(
     q: torch.Tensor,            # [B, Hq, Sq, D]
     k: torch.Tensor,            # [B, Hkv, Skv, D]
-    v: torch.Tensor,
-    out: torch.Tensor,          # [B, Hq, Sq, D], the forward's output
+    v: torch.Tensor,            # [B, Hkv, Skv, Dv]
+    out: torch.Tensor,          # [B, Hq, Sq, Dv], the forward's output
     lse: torch.Tensor,          # [B, Hq, Sq] fp32, the forward's log-sum-exp
-    do: torch.Tensor,           # [B, Hq, Sq, D]
+    do: torch.Tensor,           # [B, Hq, Sq, Dv]
     *,
     causal: bool = True,
     window: Optional[int] = None,
@@ -78,7 +80,8 @@ def attention_bwd_ref(
     JAX package's blocked backward (``models/flash.py`` ``_flash_bwd_impl``)
     written densely in fp32.  delta = rowsum(dO·O); p = exp(s·scale − lse)
     under the mask; dS = p·(dP − delta)·scale; dk and dv are summed over the
-    Hq / Hkv query heads of each KV head by index."""
+    Hq / Hkv query heads of each KV head by index.  dq and dk have D
+    columns, dv Dv."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     G = Hq // Hkv

@@ -191,8 +191,9 @@ def attention(
     """Dispatching attention core.  ``None`` positions mean ``arange``.
 
     The flash-attention kernel takes every call with more than one query,
-    default positions, no softcap and no ``kv_len``; the decode step and the
-    rest go through the dense path.  ``attn_impl`` ``"bh_flat"`` is
+    default positions, no softcap and no ``kv_len``, at v's head dim as well
+    as q's and k's (MLA's differ: the kernel's ``HEAD_DIM_PAIRS``); the
+    decode step and the rest go through the dense path.  ``attn_impl`` ``"bh_flat"`` is
     ``"kernel"`` with the flattened (batch·head) layout on a mesh.
 
     On a mesh (DTensor q, k, v) the kernel runs on each rank's heads

@@ -16,11 +16,11 @@ DeepSeek-V2-Lite (MLA), on one device.
   summed over k, so two runs give the same bits, forward and backward.
 * **MLA** (DeepSeek): the compressed cache ``{"c_kv", "k_rope"}`` and the
   reference's naive decode, which expands the whole cache every step.  Its
-  q/k head dim (nope + rope, 192 at full width) is not one the
-  flash-attention kernel takes, and it passes explicit positions, so its
-  attention takes ``attention_dense``, as the reference's does.  Mixtral's
-  attention passes ``None`` positions, so its prefill and training take the
-  kernel.
+  prefill and training pass ``None`` positions where the reference passes
+  ``arange``, so their attention takes the flash-attention kernel at MLA's
+  head dims (q·k nope + rope, 192 at full width; v 128); its decode takes
+  ``attention_dense``, as every family's does.  Mixtral's attention passes
+  ``None`` positions too, so its prefill and training take the kernel.
 
 On a device mesh the routed experts run ``_moe_ffn_shard_map``, the
 reference's ``shard_map`` layer as an explicit local region.  Params are
@@ -328,17 +328,18 @@ def mla_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     """Multi-head latent attention -> (out, new state).
 
     Positions are consecutive from 0, or from the cache's ``len`` when
-    decoding; the attention core gets them explicitly, as in the reference,
-    and takes the dense path.  Decoding writes the new ``c_kv`` and
-    ``k_rope`` into the cache IN PLACE."""
+    decoding.  Without a cache they are ``arange``, which the attention core
+    gets as ``None`` (its default), so that it takes the flash-attention
+    kernel; decoding passes them explicitly, as the reference does, and
+    takes the dense path.  Decoding writes the new ``c_kv`` and ``k_rope``
+    into the cache IN PLACE."""
     B, S, _ = x.shape
     start = 0 if kv_state is None else kv_state["len"]
     positions = torch.arange(start, start + S, device=x.device)
     q, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
     if kv_state is None:
         k, v = _mla_expand(cfg, p, c_kv, k_rope)
-        out = L.attention(cfg, q, k, v, causal=True,
-                          q_positions=positions, kv_positions=positions)
+        out = L.attention(cfg, q, k, v, causal=True)
         new_state = {"c_kv": c_kv, "k_rope": k_rope[:, 0], "len": None}
     else:
         cc, cr, cur = kv_state["c_kv"], kv_state["k_rope"], kv_state["len"]

@@ -227,16 +227,17 @@ def test_gqa_gradient_sums_every_query_head_of_the_group():
 # -- the backward kernel's wrapper --------------------------------------------
 
 @pytest.mark.parametrize("arch", [a for a in PORTED_ARCHS
-                                  if get_config(a).family != "ssm"
-                                  and not get_config(a).kv_lora_rank])
+                                  if get_config(a).family != "ssm"])
 def test_backward_variant_of_every_ported_config(arch):
-    """bf16 at every ported config's head dim (64: tinyllama-1.1b; 80:
-    stablelm-3b; 128: llama3.2-3b, nemotron-4-15b, mixtral-8x22b) runs the
-    wgmma backward, float32 always the fp32-pipe one.  DeepSeek's MLA (q/k
-    head dim 192) runs the dense path and is not among them."""
-    d = get_config(arch).resolved_head_dim
-    assert fa.variant_bwd(torch.bfloat16, d) == "fa_bwd_wgmma"
-    assert fa.variant_bwd(torch.float32, d) == "fa_bwd_simt"
+    """bf16 at every ported config's head dims (64: tinyllama-1.1b; 80:
+    stablelm-3b; 128: llama3.2-3b, nemotron-4-15b, mixtral-8x22b; q·k 192
+    and v 128: DeepSeek's MLA) runs the wgmma backward, float32 always the
+    fp32-pipe one."""
+    cfg = get_config(arch)
+    dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.kv_lora_rank
+            else (cfg.resolved_head_dim,))
+    assert fa.variant_bwd(torch.bfloat16, *dims) == "fa_bwd_wgmma"
+    assert fa.variant_bwd(torch.float32, *dims) == "fa_bwd_simt"
 
 
 def test_backward_variant_refuses_what_no_kernel_takes():

@@ -4,7 +4,8 @@ configs, the parameter bridge, the loss and its gradients, prefill, the
 cache, the decode step, Mixtral's ring, a train step, checkpoints across the
 packages and the launchers, on the smoke configs of mixtral-8x22b (2 MoE
 layers, window 64) and deepseek-v2-lite-16b (1 dense + 2 MoE layers, MLA);
-and which attention path each takes.
+and which attention path each takes (MLA's prefill and training the
+kernel's op, as Mixtral's; every decode step the dense path).
 
 Weights and tokens are made with numpy from a seed and handed to both
 sides.  Everything is float32 on the CPU.  The chosen experts must be equal
@@ -202,8 +203,9 @@ def test_ties_go_to_the_lowest_expert_index(arch):
 # -- MLA ---------------------------------------------------------------------------------
 
 def test_mla_block_prefill_and_decode_equal_jax(paths):
-    """MLA's prefill (explicit positions: the dense path) and two decode
-    steps over its compressed cache, which the port writes in place."""
+    """MLA's prefill (default positions: the kernel's op) and two decode
+    steps (explicit positions: the dense path) over its compressed cache,
+    which the port writes in place."""
     jcfg, pcfg = _cfgs(DEEPSEEK)
     P = jax.tree_util.tree_map(lambda a: a[0], _np_params(jcfg, 6)["layers"])["attn"]
     p = _torch(P)
@@ -211,7 +213,7 @@ def test_mla_block_prefill_and_decode_equal_jax(paths):
     x = np.random.default_rng(7).standard_normal((B, S + 2, jcfg.d_model)).astype(np.float32)
     jy, jst = JM.mla_block(jcfg, _jnp(P), jnp.asarray(x[:, :S]), jnp.arange(S))
     py, pst = PM.mla_block(pcfg, p, to_torch(x[:, :S]))
-    assert paths == {"kernel": 0, "dense": 1}
+    assert paths == {"kernel": 1, "dense": 0}
     assert rel_err(py, np.asarray(jy)) < TOL_FN
     for key in ("c_kv", "k_rope"):
         assert rel_err(pst[key], np.asarray(jst[key])) < TOL_FN, key
@@ -230,22 +232,29 @@ def test_mla_block_prefill_and_decode_equal_jax(paths):
         assert rel_err(py, np.asarray(jy)) < TOL_FN, i
         for key in ("c_kv", "k_rope"):
             assert rel_err(pstate[key], np.asarray(jstate[key])) < TOL_FN, (i, key)
-    assert paths == {"kernel": 0, "dense": 3}
+    assert paths == {"kernel": 1, "dense": 2}
     with pytest.raises(ValueError, match="pad_cache_to"):
         PM.mla_block(pcfg, p, to_torch(x[:, :Smax - S + 1]),
                      kv_state=dict(pstate, len=S + 2))
 
 
 def test_mla_head_dim_is_not_one_the_kernel_takes():
-    """MLA's q/k head dim (nope + rope) is 192 at full width, v's 128: the
-    flash-attention kernel takes neither pair, so MLA is on the dense path
-    by its positions, and would raise on the kernel."""
-    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    """MLA's q/k head dim (nope + rope) is 192 at full width, v's 128: not a
+    head dim the kernels take for q, k and v alike, but a pair they take
+    (HEAD_DIM_PAIRS), so MLA's prefill runs them on the card.  The smoke
+    config's pair (48, 32) is not one: there only the plain versions run."""
+    from repro_torch.kernels.flash_attention import kernel as fa
     cfg = get_config(DEEPSEEK)
-    assert cfg.qk_nope_dim + cfg.qk_rope_dim == 192 not in HEAD_DIMS
-    assert cfg.v_head_dim == 128
+    pair = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+    assert pair == (192, 128) and pair in fa.HEAD_DIM_PAIRS
+    assert pair[0] not in fa.HEAD_DIMS
+    assert fa.variant(torch.bfloat16, *pair) == "fa_fwd_wgmma"
+    assert fa.variant_bwd(torch.bfloat16, *pair) == "fa_bwd_wgmma"
     smoke = get_smoke_config(DEEPSEEK)
-    assert smoke.qk_nope_dim + smoke.qk_rope_dim == 48 not in HEAD_DIMS
+    small = (smoke.qk_nope_dim + smoke.qk_rope_dim, smoke.v_head_dim)
+    assert small == (48, 32) and small not in fa.HEAD_DIM_PAIRS
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.variant(torch.bfloat16, *small)
 
 
 # -- configs and the bridge ---------------------------------------------------------------
@@ -332,8 +341,9 @@ def _batch(cfg, B=2, S=40, seed=9):
 def test_forward_loss_and_grads_equal_jax(arch, impl, paths):
     """The hidden states and aux of ``forward``; the loss with its xent and
     aux parts; every gradient leaf, the router's and deepseek's dense layer's
-    included.  Mixtral's attention takes the kernel (its op on the CPU) on
-    the kernel path, MLA the dense path on both."""
+    included.  Both archs' attention takes the kernel (its op on the CPU:
+    the plain forward, and the plain backward under autograd) on the kernel
+    path, MLA's at q·k and v head dims that differ."""
     jcfg, cfg = _cfgs(arch, capacity_factor=NO_DROPS)
     cfg = cfg.replace(attn_impl=impl)
     P = _np_params(jcfg, 10)
@@ -359,7 +369,7 @@ def test_forward_loss_and_grads_equal_jax(arch, impl, paths):
     errs = {jax.tree_util.keystr(p): rel_err(a, b) for (p, a), b in zip(flat, ref)}
     assert len(errs) == len(ref) and max(errs.values()) < GRAD_TOL, errs
     assert np.abs(gtree["layers"]["ffn"]["router"]).max() > 0
-    kernel = cfg.num_layers if (arch == MIXTRAL and impl == "kernel") else 0
+    kernel = cfg.num_layers if impl == "kernel" else 0
     assert paths == {"kernel": kernel, "dense": cfg.num_layers - kernel}
     assert n_moe == 2
 
@@ -417,9 +427,9 @@ def test_one_train_step_equals_jax(arch):
 def test_prefill_cache_and_decode_equal_jax(arch, impl, paths):
     """Prefill logits and every cache leaf; then, after ``pad_cache_to``
     grew the cache (``k``/``v``, or MLA's ``c_kv``/``k_rope``), two decode
-    steps, logits and every cache leaf.  Mixtral's prefill reaches the
-    flash-attention op once a layer on the kernel path; MLA only the dense
-    path; every decode step the dense path."""
+    steps, logits and every cache leaf.  The prefill reaches the
+    flash-attention op once a layer on the kernel path, MLA's as Mixtral's;
+    every decode step the dense path."""
     jcfg, pcfg = _cfgs(arch, capacity_factor=NO_DROPS)
     pcfg = pcfg.replace(attn_impl=impl)
     np_tree = _np_params(jcfg, 14)
@@ -429,7 +439,7 @@ def test_prefill_cache_and_decode_equal_jax(arch, impl, paths):
     toks = _tokens(jcfg, B, S + 2, seed=15)
     jl, jcache = jmodel.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks[:, :S])})
     pl, cache = model.prefill(pcfg, params, {"tokens": to_torch(toks[:, :S]).long()})
-    kernel = L if (arch == MIXTRAL and impl == "kernel") else 0
+    kernel = L if impl == "kernel" else 0
     assert paths == {"kernel": kernel, "dense": L - kernel}
     assert rel_err(pl, np.asarray(jl)) < TOL
     assert cache["len"] == S == int(jcache["len"])
