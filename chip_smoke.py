@@ -705,19 +705,23 @@ def served_config(arch: str):
     return cfg.replace(num_layers=SERVE_LAYERS[arch]) if arch in SERVE_LAYERS else cfg
 
 
+# the wrappers' calls that went to their CUDA kernels: counters of
+# repro_torch.spans, read as differences from reset_op_counts()
+OP_COUNTERS = {"flash_attention_fwd": "kernel.fa_fwd", "flash_attention_bwd": "kernel.fa_bwd",
+               "ssd_scan_fwd": "kernel.ssd_fwd", "ssd_scan_bwd": "kernel.ssd_bwd"}
+_op_base: dict = {}
+
+
 def op_counts() -> dict:
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.ssd_scan.ops import ssd
-    return {"flash_attention_fwd": flash_attention.launches,
-            "flash_attention_bwd": flash_attention.bwd_launches,
-            "ssd_scan_fwd": ssd.launches, "ssd_scan_bwd": ssd.bwd_launches}
+    from repro_torch import spans
+    now = spans.counters()
+    return {op: now[c] - _op_base.get(c, 0) for op, c in OP_COUNTERS.items()}
 
 
 def reset_op_counts() -> None:
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.ssd_scan.ops import ssd
-    flash_attention.launches = flash_attention.bwd_launches = 0
-    ssd.launches = ssd.bwd_launches = 0
+    from repro_torch import spans
+    now = spans.counters()
+    _op_base.update({c: now[c] for c in OP_COUNTERS.values()})
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2402,6 +2406,7 @@ def phase_surrogate() -> dict:
     beside its bound and the plain version's time."""
     import dataclasses
 
+    from repro_torch import spans
     from repro_torch.core.types import ClusterSpec
     from repro_torch.experiments import surrogate as texp
     from repro_torch.experiments.runner import ExperimentSpec, TraceRef
@@ -2453,7 +2458,7 @@ def phase_surrogate() -> dict:
         with patched(texp, "build_cell", timed_build), \
                 patched(texp, "run_batch", timed_run_batch), \
                 patched(fluid_ops, "fluid_scan", timed_scan):
-            scan.launches = 0
+            scans_before = spans.counters()["kernel.fluid_scan"]
             before = fluid.launch_counts()
             t0 = time.perf_counter()
             # the grid's one bucket is the first cell's: the rule's variant
@@ -2461,7 +2466,7 @@ def phase_surrogate() -> dict:
                 lambda: texp.run_surrogate(grid, Path(d) / "grid", device="cuda"),
                 fluid, fluid.variant(warm.padded_jobs()))
             total_s = time.perf_counter() - t0
-            launches = scan.launches
+            launches = spans.counters()["kernel.fluid_scan"] - scans_before
             c_launches = {k: n - before[k] for k, n in fluid.launch_counts().items()}
     torch.cuda.synchronize()
     kernel_ms = [s.elapsed_time(e) for s, e in events]
@@ -2651,6 +2656,7 @@ def phase_calibration() -> dict:
     card, each timed (printed, not gated: 100x2 is not calibrated)."""
     import dataclasses
 
+    from repro_torch import spans
     from repro_torch.experiments import surrogate as texp
     from repro_torch.experiments.regimes import regime_spec
     from repro_torch.experiments.runner import ExperimentSpec, run_experiment
@@ -2686,7 +2692,7 @@ def phase_calibration() -> dict:
             patched(texp, "run_experiment", timed("oracle", oracle_fn)), \
             patched(texp, "run_surrogate", timed("surrogate", surrogate_fn)), \
             patched(texp, "run_batch", bucketed):
-        fluid_ops.fluid_scan.launches = 0
+        scans_before = spans.counters()["kernel.fluid_scan"]
         before = fluid.launch_counts()
         for (preset, shape), allow in sorted(texp.CALIBRATED.items()):
             n_cells = calibration_spec(preset, shape, allow).n_cells()
@@ -2723,7 +2729,7 @@ def phase_calibration() -> dict:
                     "oracle_ci_pct": [p.oracle.ci_lo_pct, p.oracle.ci_hi_pct],
                     "inside": p.inside} for p in cal.policies}}
         torch.cuda.synchronize()
-        launches = fluid_ops.fluid_scan.launches
+        launches = spans.counters()["kernel.fluid_scan"] - scans_before
         c_launches = {k: n - before[k] for k, n in fluid.launch_counts().items()
                       if n != before[k]}
     variants = sorted({fluid.variant(jp) for jp, _ in buckets})

@@ -12,62 +12,35 @@ Mamba-2, Zamba2 or MoE; bf16, the config's remat, AdamW) on batch 8 x
 sequence 1024 and traces one train step after a warm-up step, and prints the
 step's peak device memory.  Prints one JSON line per phase: the wall time,
 the time the device was busy, its idle share, the number of kernels, and the
-kernels that took most of the device time.  For the MoE archs it also splits
-the busy time by region (``REGIONS``): the router, the dispatch, the expert
-products, the un-dispatch, MLA's cache expansion, the attention on the
-flash-attention kernels (prefill and training) and on the dense path
-(decode), each with the backward of what ran inside it.
+kernels that took most of the device time, and the busy time split by the
+program's own spans (``repro_torch.spans``): each device operation goes, once,
+to the innermost span open when the host launched it, or, for a backward, when
+it ran the forward op: the step, the optimizer and its norm, the MoE layer's
+router, dispatch, expert products and un-dispatch, MLA's cache expansion,
+attention on the flash-attention kernels and on the dense path, the kernels'
+own calls.
 """
 from __future__ import annotations
 
 import argparse
 import collections
-import contextlib
 import json
 import subprocess
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import spans
 from repro_torch.configs import PORTED_ARCHS, get_config
 from repro_torch.launch.serve import pad_cache_to, resolve_device, sample
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
-from repro_torch.models import layers, moe
 from repro_torch.models.common import get_model
 from repro_torch.optim import AdamWConfig, adamw_init
 
 BATCH, PROMPT_LEN, DECODE_STEPS = 8, 1024, 16
-
-
-# the MoE archs' regions: each function runs inside a torch.profiler range
-# named after its region while `regions()` is open
-RANGE = "region:"
-REGIONS = (("moe_router", moe, "route"), ("moe_dispatch", moe, "dispatch"),
-           ("moe_experts", moe, "expert_products"), ("moe_combine", moe, "combine"),
-           ("mla_expand", moe, "_mla_expand"),
-           ("kernel_attention", layers, "flash_attention"),
-           ("dense_attention", layers, "attention_dense"))
-
-
-@contextlib.contextmanager
-def regions():
-    saved = []
-    for region, module, attr in REGIONS:
-        fn = getattr(module, attr)
-
-        def ranged(*args, _fn=fn, _name=RANGE + region, **kwargs):
-            with record_function(_name):
-                return _fn(*args, **kwargs)
-        setattr(module, attr, ranged)
-        saved.append((module, attr, fn))
-    try:
-        yield
-    finally:
-        for module, attr, fn in saved:
-            setattr(module, attr, fn)
 
 
 def traced(fn):
@@ -80,16 +53,16 @@ def traced(fn):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.name.startswith(RANGE)]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     return wall_ms, kernels, events
 
 
-def _region_of(evt):
-    """The region whose range encloses a CPU event, innermost first."""
+def _span_of(evt):
+    """The innermost of the program's spans that encloses a CPU event, by its
+    name without the prefix."""
     while evt is not None:
-        if evt.name.startswith(RANGE):
-            return evt.name[len(RANGE):]
+        if evt.name.startswith(spans.PREFIX):
+            return evt.name[len(spans.PREFIX):]
         evt = evt.cpu_parent
     return None
 
@@ -103,31 +76,35 @@ def _backward_parent(evt):
     return evt
 
 
-def split_by_region(events, busy_ms: float) -> dict:
-    """Device ms of each region: the kernels launched inside its range (its
-    forward and, under remat, its recompute) and by the backward of each op
-    that ran inside it (matched as torch.profiler matches them, by the
-    forward op's sequence number and thread; a number that several forward
-    ops saw belongs to the last, the op that made the autograd node); and
-    the rest of the busy time."""
+def split_by_span(events, busy_ms: float) -> dict:
+    """Device ms of each span, largest first: the kernels launched inside it
+    and no deeper span (its forward and, under remat, its recompute) and by
+    the backward of each op that ran there (matched as torch.profiler
+    matches them, by the forward op's sequence number and thread; a number
+    that several forward ops saw belongs to the last, the op that made the
+    autograd node); and the rest of the busy time.  A host event that shares
+    its op's id carries the op's kernels too (``Command Buffer Full``, which
+    the runtime records inside an op whose launch waited for room in the
+    queue): each id's kernels count once, on the event that began first."""
     cpu = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: e.time_range.start)
     forward = {}
     for e in cpu:
         if e.sequence_nr >= 0 and _backward_parent(e) is None:
-            forward[(e.sequence_nr, e.thread)] = _region_of(e)
-    ms = collections.Counter()
+            forward[(e.sequence_nr, e.thread)] = _span_of(e)
+    ms, counted = collections.Counter(), set()
     for e in cpu:
-        if not e.kernels:
+        if not e.kernels or e.id in counted:
             continue
-        region = _region_of(e)
-        if region is None:
+        counted.add(e.id)
+        span = _span_of(e)
+        if span is None:
             bwd = _backward_parent(e)
             if bwd is not None:
-                region = forward.get((bwd.sequence_nr, bwd.fwd_thread))
-        if region is not None:
-            ms[region] += sum(k.duration for k in e.kernels) / 1e3
-    out = {region: ms[region] for region, _, _ in REGIONS}
+                span = forward.get((bwd.sequence_nr, bwd.fwd_thread))
+        if span is not None:
+            ms[span] += sum(k.duration for k in e.kernels) / 1e3
+    out = dict(ms.most_common())
     out["rest"] = busy_ms - sum(out.values())
     return out
 
@@ -146,7 +123,7 @@ def category(name: str) -> str:
     return "elementwise_and_other"
 
 
-def summarize(phase, wall_ms, kernels, per=1, top=8, events=None, **extra):
+def summarize(phase, wall_ms, kernels, events, per=1, top=8, **extra):
     by_name = collections.Counter()
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
@@ -156,9 +133,8 @@ def summarize(phase, wall_ms, kernels, per=1, top=8, events=None, **extra):
     by_cat = collections.Counter()
     for name, ms in by_name.items():
         by_cat[category(name)] += ms
-    if events is not None:
-        extra["busy_ms_by_region"] = {
-            r: ms / per for r, ms in split_by_region(events, busy_ms).items()}
+    extra["busy_ms_by_span"] = {
+        r: ms / per for r, ms in split_by_span(events, busy_ms).items()}
     print(json.dumps({
         "phase": phase, **extra,
         "wall_ms": wall_ms / per, "device_busy_ms": busy_ms / per,
@@ -191,11 +167,9 @@ def profile_train(cfg, device, smi: str) -> None:
                       "arch": cfg.arch, "layers": cfg.num_layers, "batch": BATCH,
                       "seq": PROMPT_LEN, "remat": cfg.remat}), flush=True)
     torch.cuda.reset_peak_memory_stats()
-    with regions() if cfg.family == "moe" else contextlib.nullcontext():
-        wall, kernels, events = traced(run_step)
-    summarize("train_step", wall, kernels, top=14, loss=state["loss"],
-              peak_memory_bytes=torch.cuda.max_memory_allocated(),
-              events=events if cfg.family == "moe" else None)
+    wall, kernels, events = traced(run_step)
+    summarize("train_step", wall, kernels, events, top=14, loss=state["loss"],
+              peak_memory_bytes=torch.cuda.max_memory_allocated())
 
 
 def main() -> None:
@@ -244,13 +218,10 @@ def main() -> None:
     print(json.dumps({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
                       "arch": args.arch, "layers": cfg.num_layers, "batch": BATCH,
                       "prompt_len": PROMPT_LEN}), flush=True)
-    split = cfg.family == "moe"
-    with regions() if split else contextlib.nullcontext():
-        wall, kernels, events = traced(run_prefill)
-        summarize("prefill", wall, kernels, events=events if split else None)
-        wall, kernels, events = traced(run_decode)
-        summarize("decode", wall, kernels, per=DECODE_STEPS, steps=DECODE_STEPS,
-                  events=events if split else None)
+    wall, kernels, events = traced(run_prefill)
+    summarize("prefill", wall, kernels, events)
+    wall, kernels, events = traced(run_decode)
+    summarize("decode", wall, kernels, events, per=DECODE_STEPS, steps=DECODE_STEPS)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
@@ -181,7 +182,8 @@ def flash_attention_fwd(
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     lib = load()
-    with torch.cuda.device(q.device):
+    with spans.span("kernel.fa_fwd", q, k, v, causal=causal, window=window or 0), \
+            torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fa_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -287,7 +289,8 @@ def flash_attention_bwd(
     dk = torch.empty((B, Hkv, Skv, D), dtype=q.dtype, device=q.device)
     dv = torch.empty((B, Hkv, Skv, Dv), dtype=q.dtype, device=q.device)
     lib = load_bwd()
-    with torch.cuda.device(q.device):
+    with spans.span("kernel.fa_bwd", q, k, v, causal=causal, window=window or 0), \
+            torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fa_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

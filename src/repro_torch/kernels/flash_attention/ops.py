@@ -5,6 +5,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                         flash_attention_fwd)
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_ref
@@ -25,7 +26,7 @@ class FlashAttention(torch.autograd.Function):
         else:
             out, lse = flash_attention_fwd(q, k, v, causal=causal,
                                            window=window, return_lse=True)
-            flash_attention.launches += 1
+            spans.count("kernel.fa_fwd")
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -39,7 +40,7 @@ class FlashAttention(torch.autograd.Function):
         else:
             dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do,
                                              causal=ctx.causal, window=ctx.window)
-            flash_attention.bwd_launches += 1
+            spans.count("kernel.fa_bwd")
         return dq, dk, dv, None, None
 
 
@@ -60,16 +61,13 @@ def flash_attention(
     are the kernels' own constants, so the JAX wrapper's ``q_block``,
     ``kv_block`` and ``interpret`` have no counterpart here.
 
-    ``flash_attention.launches`` counts the forward kernel's launches,
-    ``flash_attention.bwd_launches`` the backward's."""
+    The counters ``kernel.fa_fwd`` and ``kernel.fa_bwd`` of
+    ``repro_torch.spans`` count the forward kernel's launches and the
+    backward's."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     out = flash_attention_fwd(q, k, v, causal=causal, window=window)
-    flash_attention.launches += 1
+    spans.count("kernel.fa_fwd")
     return out
-
-
-flash_attention.launches = 0
-flash_attention.bwd_launches = 0

@@ -6,6 +6,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.fluid_scan.kernel import check_inputs, fluid_scan_cuda
 from repro_torch.kernels.fluid_scan.ref import FluidPhysics, fluid_scan_ref
 
@@ -22,16 +23,11 @@ def fluid_scan(
     """Integrate the cells of one (jobs, steps) bucket (``ref.fluid_scan_ref``
     says what comes back).  A CUDA tensor goes to the CUDA kernel, which
     launches or raises; a CPU tensor goes to the plain version.
-    ``fluid_scan.launches`` counts the calls that launched the kernel."""
+    The counter ``kernel.fluid_scan`` of ``repro_torch.spans`` counts the
+    calls that launched the kernel."""
     check_inputs(jobs, order, scalars, n_steps)
     if jobs.device.type == "cpu":
         return fluid_scan_ref(jobs, order, scalars, phys, n_steps=n_steps, diag=diag)
     out = fluid_scan_cuda(jobs, order, scalars, phys, n_steps=n_steps, diag=diag)
-    _counted.launches += 1
+    spans.count("kernel.fluid_scan")
     return out
-
-
-# the count lives on this function object, also while a caller has put a
-# wrapper in its place as the module's `fluid_scan` (a timer, the plain version)
-_counted = fluid_scan
-fluid_scan.launches = 0

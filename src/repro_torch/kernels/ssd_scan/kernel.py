@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
@@ -228,7 +229,8 @@ def ssd_scan_fwd(
         cdt = torch.empty((Bsz, nc, H, 2, chunk), dtype=torch.float32, device=x.device)
         hb = torch.empty((Bsz, nc, H, P, N), dtype=torch.bfloat16, device=x.device)
     lib = load()
-    with torch.cuda.device(x.device):
+    with spans.span("kernel.ssd_fwd", x, dt, A, B_, C, chunk=chunk), \
+            torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
@@ -294,7 +296,8 @@ def ssd_scan_bwd(
     scratch = torch.empty(
         (lib.ssd_bwd_scratch_floats(Bsz, S, H, G, P, N, chunk,
                                     VARIANT_CODES_BWD[kind]),), **f32)
-    with torch.cuda.device(x.device):
+    with spans.span("kernel.ssd_bwd", x, dt, A, B_, C, dy, chunk=chunk), \
+            torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ssd_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),

@@ -6,17 +6,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd, ssd_scan_fwd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_bwd_ref, ssd_chunked_ref
 
 
 def _scan(x, dt, A, B_, C, init_state, chunk):
     """(y, final state): the CUDA kernel for a CUDA tensor, counted in
-    ``ssd.launches``; the plain chunked version for a CPU tensor."""
+    ``kernel.ssd_fwd``; the plain chunked version for a CPU tensor."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, B_, C, chunk=chunk, init_state=init_state)
     out = ssd_scan_fwd(x, dt, A, B_, C, chunk=chunk, init_state=init_state)
-    ssd.launches += 1
+    spans.count("kernel.ssd_fwd")
     return out
 
 
@@ -48,7 +49,7 @@ class SsdScan(torch.autograd.Function):
         else:
             grads = ssd_scan_bwd(x, dt, A, B_, C, dy, chunk=ctx.chunk,
                                  init_state=init_state, d_final_state=d_state)
-            ssd.bwd_launches += 1
+            spans.count("kernel.ssd_bwd")
         dx, ddt, dA, dB, dC, d_init = grads
         return (dx, ddt, dA, dB, dC, None if init_state is None else d_init,
                 None)
@@ -74,8 +75,9 @@ def ssd(
     is added in torch ops outside it, so D's gradient comes from autograd.
     The JAX wrapper's ``interpret`` has no counterpart here.
 
-    ``ssd.launches`` counts the calls that went to the forward's CUDA kernels
-    and ``ssd.bwd_launches`` the backward's, one per call whatever the
+    The counters ``kernel.ssd_fwd`` and ``kernel.ssd_bwd`` of
+    ``repro_torch.spans`` count the calls that went to the forward's CUDA
+    kernels and to the backward's, one per call whatever the
     variant: the bf16 serving variant launches two CUDA kernels a call, the
     backward five (``kernel.VARIANT_KERNELS``, ``VARIANT_KERNELS_BWD``)."""
     if torch.is_grad_enabled() and any(
@@ -86,7 +88,3 @@ def ssd(
     if D is not None:
         y = y + (x.float() * D.float()[None, None, :, None]).to(y.dtype)
     return (y, state) if return_state else y
-
-
-ssd.launches = 0
-ssd.bwd_launches = 0

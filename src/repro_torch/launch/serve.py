@@ -21,6 +21,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.common import get_model, resolve_device
@@ -42,10 +43,15 @@ def pad_cache_to(cache: dict, max_len: int, window: Optional[int] = None) -> dic
     package's ``pad_cache_to`` pads the ring all the same)."""
     if window:
         max_len = min(max_len, window)
+    with spans.span("serve.pad_cache"):
+        return _pad(cache, max_len)
+
+
+def _pad(cache: dict, max_len: int) -> dict:
     out = {}
     for key, val in cache.items():
         if isinstance(val, dict):
-            val = pad_cache_to(val, max_len)
+            val = _pad(val, max_len)
         elif key in SEQ_KEYS and isinstance(val, torch.Tensor) and val.ndim >= 3:
             pad = max_len - val.shape[-2]
             if pad > 0:
@@ -62,11 +68,12 @@ def sync(device: torch.device) -> None:
 def sample(logits: torch.Tensor, temperature: float,
            generator: torch.Generator) -> torch.Tensor:
     """Next token ids [B, 1] from logits [B, S, V]: greedy at temperature 0."""
-    last = logits[:, -1]
-    if temperature <= 0:
-        return torch.argmax(last, dim=-1, keepdim=True)
-    probs = torch.softmax(last.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)
+    with spans.span("serve.sample"):
+        last = logits[:, -1]
+        if temperature <= 0:
+            return torch.argmax(last, dim=-1, keepdim=True)
+        probs = torch.softmax(last.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)
 
 
 def generate(cfg, params, prompts: torch.Tensor, gen: int,

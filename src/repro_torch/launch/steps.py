@@ -11,6 +11,14 @@ microbatch's batch dim is sharded over ``dp_entry``, and each microbatch's
 gradients are redistributed to the params' placements (``grad_specs``, or
 each param's own), the JAX package's ``constrain_grads``, which turns the
 data-parallel all-reduce into a reduce-scatter onto FSDP shards.
+
+The steps open spans (``repro_torch.spans``): ``prefill_step`` and
+``decode_step`` around the whole step, ``train_step.forward`` around a train
+step's forward and loss.  ``prefill_step`` and ``train_step.forward`` carry
+the step's number in the process (``batch``, ``step``), a count kept on the
+host.  The main thread opens no span while it waits for the backward, which
+the autograd engine's thread runs: what the host was doing then is named by
+that thread's op.
 """
 from __future__ import annotations
 
@@ -18,21 +26,24 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models.common import (ModelConfig, get_model, tree_leaves,
                                        tree_unflatten)
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.parallel.activations import is_dtensor
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch: Dict) -> Tuple[torch.Tensor, List]:
+def loss_and_grads(cfg: ModelConfig, params, batch: Dict,
+                   **ids) -> Tuple[torch.Tensor, List]:
     """The model's loss on ``batch`` and its gradients, one per leaf of
     ``params`` (``tree_leaves`` order), in each leaf's dtype.  The params'
     tensors themselves are left as they are: the graph runs on detached
-    views that require grad."""
+    views that require grad.  ``ids`` go on the span ``train_step.forward``."""
     model = get_model(cfg)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss, _ = model.loss(cfg, tree_unflatten(params, leaves), batch)
+        with spans.span("train_step.forward", **ids):
+            loss, _ = model.loss(cfg, tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the loss does not read (a parallel-residual block's ln2) has a
     # zero gradient, as in JAX
@@ -56,12 +67,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1,
     DTensor."""
 
     def train_step(params, opt_state, batch):
+        step = spans.count("train_step") - 1
         leaves = tree_leaves(params)
         if is_dtensor(leaves[0]):
-            return _mesh_step(params, opt_state, batch, leaves)
+            return _mesh_step(params, opt_state, batch, leaves, step)
         M = grad_accum
         if M <= 1:
-            loss, grads = loss_and_grads(cfg, params, batch)
+            loss, grads = loss_and_grads(cfg, params, batch, step=step)
             grads = [g.float() for g in grads]
         else:
             mbs = [{k: v.reshape((M, v.shape[0] // M) + v.shape[1:])[i]
@@ -69,7 +81,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1,
             grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             loss = torch.zeros((), dtype=torch.float32, device=grads[0].device)
             for mb in mbs:
-                lm, gm = loss_and_grads(cfg, params, mb)
+                lm, gm = loss_and_grads(cfg, params, mb, step=step)
                 for acc, g in zip(grads, gm):
                     acc += g.float()
                 loss = loss + lm
@@ -79,7 +91,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1,
                                          tree_unflatten(params, grads), opt_state)
         return params, opt_state, {"loss": loss}
 
-    def _mesh_step(params, opt_state, batch, leaves):
+    def _mesh_step(params, opt_state, batch, leaves, step):
         from torch.distributed.tensor import DTensor
         from torch.distributed.tensor.experimental import implicit_replication
         from repro_torch.parallel.sharding import (PartitionSpec, placements,
@@ -96,7 +108,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, grad_accum: int = 1,
             for i in range(M):
                 mb = {k: shard_batch(v[i * (B // M):(i + 1) * (B // M)], spec, mesh)
                       for k, v in batch.items()}
-                lm, gm = loss_and_grads(cfg, params, mb)
+                lm, gm = loss_and_grads(cfg, params, mb, step=step)
                 # constrain_grads: onto the params' shards, then summed there
                 gm = [g.float().redistribute(mesh, t).to_local()
                       for g, t in zip(gm, targets)]
@@ -118,7 +130,8 @@ def make_prefill_step(cfg: ModelConfig):
     model = get_model(cfg)
 
     def prefill_step(params, batch):
-        return model.prefill(cfg, params, batch)
+        with spans.span("prefill_step", batch=spans.count("prefill_step") - 1):
+            return model.prefill(cfg, params, batch)
 
     return prefill_step
 
@@ -127,6 +140,7 @@ def make_decode_step(cfg: ModelConfig):
     model = get_model(cfg)
 
     def decode_step(params, cache, batch):
-        return model.decode_step(cfg, params, cache, batch)
+        with spans.span("decode_step"):
+            return model.decode_step(cfg, params, cache, batch)
 
     return decode_step

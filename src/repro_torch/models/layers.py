@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import spans
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import NEG_INF as _NEG_INF
 from repro_torch.models.common import ModelConfig
@@ -203,30 +204,33 @@ def attention(
     and ``attn_row_parallel`` (``attn_sm``: the local batch's rows padded and
     cut over tp).  The JAX package takes these branches only above 2048
     queries, where its own dispatch leaves its dense path; the port's kernel
-    path starts at two queries, and so do they."""
+    path starts at two queries, and so do they.  Each path runs in its span
+    (``repro_torch.spans``), ``attention.kernel`` or ``attention.dense``."""
     if cfg.attn_impl not in ("kernel", "dense", "bh_flat"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     Sq, Skv = q.shape[2], k.shape[2]
     if (cfg.attn_impl != "dense" and Sq > 1 and q_positions is None
             and kv_positions is None and cfg.attn_logit_softcap is None
             and kv_len is None):
+        with spans.span("attention.kernel"):
+            if is_dtensor(q):
+                return _mesh_flash_attention(cfg, q, k, v, causal, window)
+            return flash_attention(q, k, v, causal=causal, window=window)
+    with spans.span("attention.dense"):
+        if q_positions is None:
+            q_positions = torch.arange(Sq, device=q.device)
+        if kv_positions is None:
+            kv_positions = torch.arange(Skv, device=q.device)
+
+        def dense(ql, kl, vl):
+            return attention_dense(
+                ql, kl, vl, causal=causal, q_positions=q_positions,
+                kv_positions=kv_positions, window=window,
+                softcap=cfg.attn_logit_softcap, kv_len=kv_len)
+
         if is_dtensor(q):
-            return _mesh_flash_attention(cfg, q, k, v, causal, window)
-        return flash_attention(q, k, v, causal=causal, window=window)
-    if q_positions is None:
-        q_positions = torch.arange(Sq, device=q.device)
-    if kv_positions is None:
-        kv_positions = torch.arange(Skv, device=q.device)
-
-    def dense(ql, kl, vl):
-        return attention_dense(
-            ql, kl, vl, causal=causal, q_positions=q_positions,
-            kv_positions=kv_positions, window=window,
-            softcap=cfg.attn_logit_softcap, kv_len=kv_len)
-
-    if is_dtensor(q):
-        return _on_local_heads(dense, q, k, v)
-    return dense(q, k, v)
+            return _on_local_heads(dense, q, k, v)
+        return dense(q, k, v)
 
 
 def _on_local_heads(fn: Callable, q, k, v):

@@ -36,6 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, register, resolve_device
 from repro_torch.parallel.activations import shard_acts
@@ -87,12 +88,13 @@ def route(cfg: ModelConfig, p: Dict, xg: torch.Tensor):
     the probabilities rounded to bf16, best first and ties to the lowest
     index (``jax.lax.top_k``'s order); the gates come from the fp32
     probabilities, renormalised over the k chosen."""
-    logits = xg.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    order = torch.sort(probs.to(torch.bfloat16), dim=-1, descending=True,
-                       stable=True).indices
-    idx = order[..., :cfg.top_k]
-    return probs, idx, gates(probs, idx)
+    with spans.span("moe.route"):
+        logits = xg.float() @ p["router"].float()
+        probs = torch.softmax(logits, dim=-1)
+        order = torch.sort(probs.to(torch.bfloat16), dim=-1, descending=True,
+                           stable=True).indices
+        idx = order[..., :cfg.top_k]
+        return probs, idx, gates(probs, idx)
 
 
 def gates(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -112,37 +114,39 @@ def dispatch(cfg: ModelConfig, xg: torch.Tensor, idx: torch.Tensor, cap: int):
     ``j - start(expert)`` of its expert's ``cap`` when that is below ``cap``,
     and is dropped otherwise.  A dropped choice's row is the extra row
     ``E*G*cap``, which is discarded (its output is zero)."""
-    G, T, d = xg.shape
-    E, k = cfg.n_experts, cfg.top_k
-    flat_e = idx.reshape(G, T * k)
-    order = torch.sort(flat_e, dim=-1, stable=True).indices            # [G, T*k]
-    sorted_e = torch.gather(flat_e, 1, order)
-    experts = torch.arange(E, device=xg.device).expand(G, E).contiguous()
-    seg_start = torch.searchsorted(sorted_e, experts)                  # [G, E]
-    pos = torch.arange(T * k, device=xg.device) - torch.gather(seg_start, 1, sorted_e)
-    # one row per (expert, group, slot), experts outermost so that each
-    # expert's rows are contiguous for its products
-    groups = torch.arange(G, device=xg.device)[:, None]
-    slot = torch.where(pos < cap, (sorted_e * G + groups) * cap + pos, E * G * cap)
-    # entry j carries token order[j] // k: x repeated k times, permuted
-    xk = xg[:, :, None, :].expand(G, T, k, d).reshape(G, T * k, d)
-    xs = torch.gather(xk, 1, order[..., None].expand(G, T * k, d))
-    buf = xg.new_zeros((E * G * cap + 1, d)).index_copy(
-        0, slot.reshape(-1), xs.reshape(-1, d))
-    # each token's k choices back in token order
-    inv = torch.empty_like(order).scatter_(
-        1, order, torch.arange(T * k, device=xg.device).expand(G, T * k))
-    return buf[:-1].view(E, G * cap, d), torch.gather(slot, 1, inv)
+    with spans.span("moe.dispatch"):
+        G, T, d = xg.shape
+        E, k = cfg.n_experts, cfg.top_k
+        flat_e = idx.reshape(G, T * k)
+        order = torch.sort(flat_e, dim=-1, stable=True).indices            # [G, T*k]
+        sorted_e = torch.gather(flat_e, 1, order)
+        experts = torch.arange(E, device=xg.device).expand(G, E).contiguous()
+        seg_start = torch.searchsorted(sorted_e, experts)                  # [G, E]
+        pos = torch.arange(T * k, device=xg.device) - torch.gather(seg_start, 1, sorted_e)
+        # one row per (expert, group, slot), experts outermost so that each
+        # expert's rows are contiguous for its products
+        groups = torch.arange(G, device=xg.device)[:, None]
+        slot = torch.where(pos < cap, (sorted_e * G + groups) * cap + pos, E * G * cap)
+        # entry j carries token order[j] // k: x repeated k times, permuted
+        xk = xg[:, :, None, :].expand(G, T, k, d).reshape(G, T * k, d)
+        xs = torch.gather(xk, 1, order[..., None].expand(G, T * k, d))
+        buf = xg.new_zeros((E * G * cap + 1, d)).index_copy(
+            0, slot.reshape(-1), xs.reshape(-1, d))
+        # each token's k choices back in token order
+        inv = torch.empty_like(order).scatter_(
+            1, order, torch.arange(T * k, device=xg.device).expand(G, T * k))
+        return buf[:-1].view(E, G * cap, d), torch.gather(slot, 1, inv)
 
 
 def expert_products(p: Dict, buf: torch.Tensor) -> torch.Tensor:
     """Each expert's SwiGLU over its rows: buf [E, R, d] -> [E, R, d], in
     buf's type, SiLU in fp32."""
-    dt = buf.dtype
-    g = torch.matmul(buf, p["w_gate"].to(dt))
-    u = torch.matmul(buf, p["w_up"].to(dt))
-    h = F.silu(g.float()).to(dt) * u
-    return torch.matmul(h, p["w_down"].to(dt))
+    with spans.span("moe.experts"):
+        dt = buf.dtype
+        g = torch.matmul(buf, p["w_gate"].to(dt))
+        u = torch.matmul(buf, p["w_up"].to(dt))
+        h = F.silu(g.float()).to(dt) * u
+        return torch.matmul(h, p["w_down"].to(dt))
 
 
 def combine(y: torch.Tensor, rows: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
@@ -152,11 +156,12 @@ def combine(y: torch.Tensor, rows: torch.Tensor, gate: torch.Tensor) -> torch.Te
     result has the same bits run to run; so has its gradient, whose
     ``index_add`` adds to each kept row once (only the discarded row, which
     every dropped choice reads, takes several)."""
-    G, T, k = gate.shape
-    d = y.shape[-1]
-    y = torch.cat([y.reshape(-1, d), y.new_zeros((1, d))])
-    picked = torch.index_select(y, 0, rows.reshape(-1)).view(G, T, k, d)
-    return (picked * gate.to(y.dtype)[..., None]).sum(dim=2)
+    with spans.span("moe.combine"):
+        G, T, k = gate.shape
+        d = y.shape[-1]
+        y = torch.cat([y.reshape(-1, d), y.new_zeros((1, d))])
+        picked = torch.index_select(y, 0, rows.reshape(-1)).view(G, T, k, d)
+        return (picked * gate.to(y.dtype)[..., None]).sum(dim=2)
 
 
 def _dispatch(cfg: ModelConfig, p: Dict, xg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -257,22 +262,26 @@ def moe_ffn(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, t
 
     On a mesh (a DTensor x; ``B`` divisible by dp, ``S > 1``, ``d_ff_expert``
     divisible by tp) the routed experts run ``_moe_ffn_shard_map``, as the
-    JAX package's ``moe_ffn`` decides."""
+    JAX package's ``moe_ffn`` decides.  The layer runs in the span ``moe``
+    (``repro_torch.spans``), and ``route``, ``dispatch``, ``expert_products``
+    and ``combine`` each in its own inside it: ``moe.route``, ``moe.dispatch``,
+    ``moe.experts``, ``moe.combine``."""
     from repro_torch.parallel.activations import _STATE as _ACT, is_dtensor
-    B, S, d = x.shape
-    use_sm = (_ACT["mesh"] is not None and _ACT["dp"] is not None
-              and is_dtensor(x) and B % _ACT["dp_size"] == 0 and S > 1
-              and cfg.d_ff_expert % max(_ACT["tp_size"], 1) == 0)
-    if use_sm:
-        out, aux = _moe_ffn_shard_map(cfg, p, x)
-    else:
-        G = dispatch_groups(cfg, B * S)
-        out, aux = _dispatch(cfg, p, x.reshape(G, (B * S) // G, d))
-        out = out.reshape(B, S, d)
-        aux = aux.mean()
-    if cfg.n_shared_experts:
-        out = out + L.ffn(cfg, p["shared"], x)
-    return out, aux
+    with spans.span("moe"):
+        B, S, d = x.shape
+        use_sm = (_ACT["mesh"] is not None and _ACT["dp"] is not None
+                  and is_dtensor(x) and B % _ACT["dp_size"] == 0 and S > 1
+                  and cfg.d_ff_expert % max(_ACT["tp_size"], 1) == 0)
+        if use_sm:
+            out, aux = _moe_ffn_shard_map(cfg, p, x)
+        else:
+            G = dispatch_groups(cfg, B * S)
+            out, aux = _dispatch(cfg, p, x.reshape(G, (B * S) // G, d))
+            out = out.reshape(B, S, d)
+            aux = aux.mean()
+        if cfg.n_shared_experts:
+            out = out + L.ffn(cfg, p["shared"], x)
+        return out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -314,13 +323,14 @@ def _mla_qkv(cfg: ModelConfig, p: Dict, x: torch.Tensor, positions: torch.Tensor
 def _mla_expand(cfg: ModelConfig, p: Dict, c_kv: torch.Tensor, k_rope: torch.Tensor):
     """Expand the compressed cache to per-head K [B,H,S,nope+rope] and V
     [B,H,S,vdim].  c_kv [B,S,lora], k_rope [B,1,S,rope]."""
-    B, S, _ = c_kv.shape
-    H = cfg.n_heads
-    dt = c_kv.dtype
-    k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, -1).transpose(1, 2)
-    v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, -1).transpose(1, 2)
-    k = torch.cat([k_nope, k_rope.expand(B, H, S, cfg.qk_rope_dim)], dim=-1)
-    return k, v
+    with spans.span("mla.expand"):
+        B, S, _ = c_kv.shape
+        H = cfg.n_heads
+        dt = c_kv.dtype
+        k_nope = (c_kv @ p["w_uk"].to(dt)).reshape(B, S, H, -1).transpose(1, 2)
+        v = (c_kv @ p["w_uv"].to(dt)).reshape(B, S, H, -1).transpose(1, 2)
+        k = torch.cat([k_nope, k_rope.expand(B, H, S, cfg.qk_rope_dim)], dim=-1)
+        return k, v
 
 
 def mla_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,

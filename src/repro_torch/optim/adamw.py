@@ -9,7 +9,9 @@ host.  Unlike the JAX package, which returns new trees, ``adamw_update``
 updates the params and the moments in place: at tinyllama-1.1b's size a
 second copy of the moments alone would cost 8.8 GB.  On a device mesh the
 params, grads and moments are DTensors of the same placements; the update
-runs on each rank's shards, and only the global norm communicates.
+runs on each rank's shards, and only the global norm communicates.  The
+update runs in the span ``optimizer``, its global norm in ``optimizer.norm``
+(``repro_torch.spans``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.parallel.activations import is_dtensor
 
@@ -63,9 +66,10 @@ def _global_norm(tree) -> torch.Tensor:
     sharded one across its shards; the result is a plain tensor, the same
     on every rank."""
     leaves = tree_leaves(tree)
-    if leaves and is_dtensor(leaves[0]):
-        return torch.sqrt(_mesh_sum_of_squares(leaves))
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    with spans.span("optimizer.norm"):
+        if leaves and is_dtensor(leaves[0]):
+            return torch.sqrt(_mesh_sum_of_squares(leaves))
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
 
 
 def _mesh_sum_of_squares(leaves) -> torch.Tensor:
@@ -93,6 +97,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, state) -> Tuple[Any, Dict]:
     """Returns (params, new_state).  Grads may be bf16; math is fp32.  The
     params and the moments are updated in place: the returned trees hold the
     same tensors, and ``step`` is a new one."""
+    with spans.span("optimizer"):
+        return _update(cfg, params, grads, state)
+
+
+def _update(cfg: AdamWConfig, params, grads, state) -> Tuple[Any, Dict]:
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
     gnorm = _global_norm(grads)

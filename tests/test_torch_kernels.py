@@ -14,6 +14,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro_torch import spans
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -81,9 +82,9 @@ def test_plain_version_ignores_strides():
 
 def test_cpu_path_counts_no_launch():
     q, k, v = (to_torch(a) for a in _qkv(SHAPES[0], "float32"))
-    before = flash_attention.launches
+    before = spans.counters()["kernel.fa_fwd"]
     flash_attention(q, k, v)
-    assert flash_attention.launches == before
+    assert spans.counters()["kernel.fa_fwd"] == before
 
 
 @pytest.mark.parametrize("bad,message", [

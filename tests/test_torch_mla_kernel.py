@@ -29,6 +29,7 @@ from repro.models import layers as JL
 from repro.models.common import get_model as jax_model
 from repro.optim import AdamWConfig as JaxAdamWConfig
 from repro.optim import adamw_init as jax_adamw_init
+from repro_torch import spans
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -122,7 +123,8 @@ def test_plain_attention_at_mla_head_dims_equals_jax(shape, mask):
     jout, vjp = jax.vjp(jax_core, *(jnp.asarray(a) for a in (q, k, v)))
     jgrads = vjp(jnp.asarray(do))
     ins = [to_torch(a).requires_grad_() for a in (q, k, v)]
-    before = (flash_attention.launches, flash_attention.bwd_launches)
+    names = ("kernel.fa_fwd", "kernel.fa_bwd")
+    before = [spans.counters()[k] for k in names]
     out = flash_attention(*ins, causal=causal, window=window)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     assert out.shape == (B, Hq, S, Dv)
@@ -132,7 +134,7 @@ def test_plain_attention_at_mla_head_dims_equals_jax(shape, mask):
         assert g.shape[-1] == n and g.shape == r.shape, name
         assert rel_err(g, np.asarray(r)) < GRAD_TOL, name
     # the CPU path launches nothing
-    assert (flash_attention.launches, flash_attention.bwd_launches) == before
+    assert [spans.counters()[k] for k in names] == before
 
 
 # -- MLA and the MoE model through the dispatch --------------------------------------

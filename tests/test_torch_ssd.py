@@ -25,6 +25,7 @@ import torch
 from repro.kernels.ssd_scan.ops import ssd as jax_ssd
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
 from repro.models.mamba2 import ssd_chunked as jax_chunked
+from repro_torch import spans
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
 from repro_torch.kernels.ssd_scan.ops import ssd
@@ -140,9 +141,9 @@ def test_chunk_size_does_not_change_the_function():
 
 def test_cpu_path_counts_no_launch():
     arrs = [to_torch(a) for a in _inputs(*SHAPES[0][:6], "float32")]
-    before = ssd.launches
+    before = spans.counters()["kernel.ssd_fwd"]
     ssd(*arrs, chunk=32)
-    assert ssd.launches == before
+    assert spans.counters()["kernel.ssd_fwd"] == before
 
 
 @pytest.mark.parametrize("which", [0, 1, 3, 5])

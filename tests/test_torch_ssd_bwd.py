@@ -26,6 +26,7 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models.common import get_model as jax_model
 from repro.models.mamba2 import ssd_chunked as jax_chunked
+from repro_torch import spans
 from repro_torch.configs import PORTED_ARCHS, get_config, get_smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import kernel as kssd
@@ -194,10 +195,11 @@ def test_ssd_under_autograd_gives_every_gradient(with_init):
         out = (y * to_torch(dy)).sum() + (hT * to_torch(dT)).sum()
         return torch.autograd.grad(out, ins + ([init] if with_init else []))
 
-    launches = (ssd.launches, ssd.bwd_launches)
+    names = ("kernel.ssd_fwd", "kernel.ssd_bwd")
+    launches = [spans.counters()[k] for k in names]
     got = run(lambda ins, init: ssd(*ins, chunk=chunk, init_state=init,
                                     return_state=True))
-    assert (ssd.launches, ssd.bwd_launches) == launches
+    assert [spans.counters()[k] for k in names] == launches
 
     def plain(ins, init):
         y, hT = ssd_chunked_ref(*ins[:5], chunk=chunk, init_state=init)

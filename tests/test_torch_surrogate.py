@@ -41,6 +41,7 @@ import repro_torch.experiments.runner as trunner
 import repro_torch.experiments.surrogate as texp
 import repro_torch.simcluster.surrogate as tsur
 import repro_torch.simcluster.traces as ttraces
+from repro_torch import spans
 from repro_torch.experiments.stats import compare_throughput
 from repro_torch.kernels import _build
 from repro_torch.kernels.fluid_scan import kernel as k3
@@ -593,8 +594,8 @@ def test_wrapper_rejects_bad_inputs_before_any_launch(monkeypatch):
     # plain version and counts no launch
     with pytest.raises(ValueError, match="CUDA tensors"):
         k3.fluid_scan_cuda(jobs, order, scalars, tsur.PHYSICS, n_steps=256)
-    before = fluid_ops.fluid_scan.launches
+    before = spans.counters()["kernel.fluid_scan"]
     out = fluid_ops.fluid_scan(jobs, order, scalars, tsur.PHYSICS, n_steps=256)
-    assert fluid_ops.fluid_scan.launches == before
+    assert spans.counters()["kernel.fluid_scan"] == before
     assert out["steps"].tolist() == [0, 0]         # no real job: nothing to run
     assert out["finish"].shape == (2, 16)
