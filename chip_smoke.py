@@ -415,6 +415,12 @@ FLEET_FAIL_HOST = 1
 FLEET_CKPT_EVERY = 8
 # examples/train_100m_torch.py as a user runs it on the card
 TRAIN_100M_ARGS = ("--preset", "100m")
+# K4 (AdamW's norm and update) at the training cell's optimizer: the leaf set
+# of deepseek-v2-lite-16b's first 6 layers (83 leaves, 3.42 B parameters; bf16
+# params and fp32 routers, fp32 grads and moments: about 48 GB, and the state
+# before the checked step, 34 GB, on the host)
+ADAMW_ARCH = "deepseek-v2-lite-16b"
+ADAMW_LAYERS = 6
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -903,16 +909,17 @@ def phase_env() -> str:
 def phase_build(verbose: bool) -> None:
     """Every kernel source, one nvcc each, started together."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.adamw import kernel as k4
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.fluid_scan import kernel as fluid
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    sources = (fa.SOURCE, fa.SOURCE_BWD, ssd.SOURCE, ssd.SOURCE_BWD, fluid.SOURCE)
+    sources = (fa.SOURCE, fa.SOURCE_BWD, ssd.SOURCE, ssd.SOURCE_BWD, fluid.SOURCE, k4.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         libs = list(pool.map(lambda src: _build.build(src, verbose), sources))
-    fa.load(), fa.load_bwd(), ssd.load(), ssd.load_bwd(), fluid.load()
+    fa.load(), fa.load_bwd(), ssd.load(), ssd.load_bwd(), fluid.load(), k4.load()
     emit("build", kernels=["flash_attention_fwd", "flash_attention_bwd",
-                           "ssd_scan_fwd", "ssd_scan_bwd", "fluid_scan"],
+                           "ssd_scan_fwd", "ssd_scan_bwd", "fluid_scan", "adamw"],
          sources=[str(src.relative_to(ROOT)) for src in sources],
          libraries=[str(lib.relative_to(ROOT)) for lib in libs],
          seconds=round(time.perf_counter() - t0, 3))
@@ -1195,6 +1202,120 @@ def device_split(fn, calls: int = 10, burn: int = 1000, tries: int = 5) -> dict:
     return {name: {"ms": t / 1e3 / calls, "launches": launches[name],
                    "share": t / total if total else None}
             for name, t in us.items()}
+
+
+def adamw_bound_ms(params, grads) -> float:
+    """Least time the card could take for one optimizer step: the norm reads
+    each gradient once; the update reads g, p, m and v and writes p, m and v
+    once."""
+    n_bytes = sum(g.numel() * (2 * g.element_size() + 2 * p.element_size() + 16)
+                  for p, g in zip(params, grads))
+    return n_bytes / PEAK_BYTES_PER_S * 1e3
+
+
+def fused_adamw_ms(params, grads, ms, vs):
+    """`torch._fused_adamw_` over the same leaves, bf16 params with fp32
+    grads and moments: the yardstick, called nowhere in the port; (None, the
+    reason) where it does not take them."""
+    steps = [torch.ones((), device="cuda") for _ in params]
+
+    def call():
+        torch._fused_adamw_(params, grads, ms, vs, [], steps, amsgrad=False, lr=1e-5,
+                            beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                            maximize=False)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+    return time_ms(call, 5), None
+
+
+def phase_adamw() -> dict:
+    """K4 at the training cell's optimizer (ADAMW_ARCH at ADAMW_LAYERS): one
+    optimizer step (`optim.adamw_update`: the schedule's scalars, then K4's
+    norm and update) launches each CUDA kernel once and counts one
+    `kernel.adamw` call; every leaf's params and moments after it are
+    bit-equal to the plain version's from the same state and scalars (the
+    state before the step kept on the host, the plain version run a leaf at
+    a time); the norm within 1e-6 of a float64 sum.  Then the whole step and
+    the plain version's norm and update timed in turns, K4's kernels by the
+    profiler's split, beside the bound of moving each byte once and
+    `torch._fused_adamw_`'s time where it takes bf16 params with fp32
+    moments."""
+    from repro_torch import spans
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import kernel as k4
+    from repro_torch.kernels.adamw import ops as k4_ops
+    from repro_torch.kernels.adamw.ref import adamw_update_ref, sum_of_squares_ref
+    from repro_torch.models.common import get_model, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, cosine_lr
+
+    cfg = get_config(ADAMW_ARCH).replace(num_layers=ADAMW_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = get_model(cfg).init(cfg, gen, "cuda")
+    leaves = tree_leaves(params)
+    grads = [torch.randn(p.shape, generator=gen, device="cuda").mul_(1e-4) for p in leaves]
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    opt = adamw_init(params)
+    params, opt = adamw_update(opt_cfg, params, grads, opt)   # moments not zero
+    ms, vs = tree_leaves(opt["m"]), tree_leaves(opt["v"])
+    torch.cuda.synchronize()
+    host = [[x.to("cpu") for x in xs] for xs in (leaves, ms, vs)]
+    step = opt["step"] + 1
+    before, calls = k4.launch_counts(), spans.counters()["kernel.adamw"]
+    params, opt = adamw_update(opt_cfg, params, grads, opt)
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in k4.launch_counts().items()}
+    counted = spans.counters()["kernel.adamw"] - calls
+    # the step's scalars, by its expressions (K4's norm is the same run to run)
+    t = step.float()
+    total, gnorm = k4_ops.sum_of_squares(grads)
+    sc = dict(scale=torch.clamp_max(opt_cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0),
+              lr=cosine_lr(opt_cfg, t), b1t=1.0 - opt_cfg.b1 ** t, b2t=1.0 - opt_cfg.b2 ** t,
+              b1=opt_cfg.b1, b2=opt_cfg.b2, eps=opt_cfg.eps,
+              weight_decay=opt_cfg.weight_decay)
+    unequal = []
+    for i, (p, g, m, v) in enumerate(zip(leaves, grads, ms, vs)):
+        mine = [x.to("cuda") for x in (host[0][i], host[1][i], host[2][i])]
+        adamw_update_ref(*[[x] for x in (mine[0], g, mine[1], mine[2])], **sc)
+        if not all(same_bits(a, b) for a, b in zip(mine, (p, m, v))):
+            unequal.append(i)
+        del mine
+    del host
+    exact = sum(float(torch.sum(g.double() ** 2)) for g in grads)
+    norm_rel_err = abs(float(total) - exact) / exact
+
+    def k4_step():
+        adamw_update(opt_cfg, params, grads, opt)
+
+    def plain_step():
+        sum_of_squares_ref(grads)
+        adamw_update_ref(leaves, grads, ms, vs, **sc)
+
+    timed, order = in_turns([("k4", k4_step), ("plain", plain_step)], iters=5)
+    split = device_split(k4_step, calls=3)
+    kernels_ms = {name: x["ms"] for name, x in split.items() if "adamw" in name}
+    library_ms, library_refused = fused_adamw_ms(leaves, grads, ms, vs)
+    result = {
+        "arch": ADAMW_ARCH, "layers": ADAMW_LAYERS, "leaves": len(leaves),
+        "params": sum(p.numel() for p in leaves),
+        "param_dtypes": sorted({str(p.dtype) for p in leaves}),
+        "launches": launches, "kernel_adamw_calls": counted,
+        "bit_equal_leaves": len(leaves) - len(unequal), "unequal_leaves": unequal,
+        "norm_rel_err": norm_rel_err,
+        "ms": sum(kernels_ms.values()), "kernels_ms": kernels_ms,
+        "step_ms": min(timed["k4"]), "device_ops_a_step": sum(
+            x["launches"] for x in split.values()) // 3,
+        "bound_ms": adamw_bound_ms(leaves, grads), "bound_by": "bytes",
+        "plain_ms": min(timed["plain"]), "in_turns": order,
+        "library_ms": library_ms, "library_refused": library_refused}
+    emit("kernels_adamw", **result)
+    del params, opt, leaves, grads, ms, vs
+    if unequal or launches != {"adamw_sumsq": 1, "adamw_update": 1} or counted != 1 \
+            or norm_rel_err > 1e-6:
+        raise AssertionError(f"K4 at {ADAMW_ARCH}: {result}")
+    return result
 
 
 def phase_attention_bwd() -> dict:
@@ -1919,7 +2040,9 @@ def phase_train(arch: str) -> dict:
     backward once (`expected_launches`); the ops the arch does not have
     never; each through the CUDA kernels of the variant that the rule
     names."""
+    from repro_torch import spans
     from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import kernel as k4
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.common import get_model, param_count, tree_leaves
@@ -1947,6 +2070,7 @@ def phase_train(arch: str) -> dict:
     reset_op_counts()
     fa.flash_attention_bwd.copies = 0
     before = cuda_kernel_counts()
+    k4_before, k4_calls = k4.launch_counts(), spans.counters()["kernel.adamw"]
     times = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1962,6 +2086,13 @@ def phase_train(arch: str) -> dict:
         raise AssertionError(f"kernel launches {counts} ({cuda_kernels}) in "
                              f"{TRAIN_STEPS} train steps of {arch}, expected "
                              f"{expected} and {want}")
+    # K4: the norm and the update of every leaf, a launch each a plan's launch
+    adamw = {k: n - k4_before[k] for k, n in k4.launch_counts().items()}
+    adamw_calls = spans.counters()["kernel.adamw"] - k4_calls
+    per_step = len(k4.plan([x.numel() for x in tree_leaves(params)]))
+    if adamw != {k: TRAIN_STEPS * per_step for k in k4.KERNELS} or adamw_calls != TRAIN_STEPS:
+        raise AssertionError(f"K4 launches {adamw} ({adamw_calls} calls) in "
+                             f"{TRAIN_STEPS} train steps of {arch}")
     timed = losses[1:]
     if not all(math.isfinite(x) for x in losses) or timed[-1] >= losses[0] or \
             any(b >= a for a, b in zip(timed, timed[1:])):
@@ -1982,6 +2113,7 @@ def phase_train(arch: str) -> dict:
               "param_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
               "moment_bytes": 2 * 4 * n_params, "fp32_grad_bytes": 4 * n_params,
               "launches_by_kernel": counts, "cuda_kernel_launches": cuda_kernels,
+              "adamw_launches": adamw, "leaves": len(tree_leaves(params)),
               "bwd_calls_that_copied_out_or_do": bwd_copies}
     if "enc_embeds" in batch:
         result["encoder_frames"] = WHISPER_FRAMES
@@ -3403,6 +3535,8 @@ def main() -> int:
     k2 = phase_ssd_kernels()
     k2b = phase_ssd_bwd_kernels()
     release()
+    k4 = phase_adamw()
+    release()
     phase_mapreduce()
     release()
     sur = phase_surrogate()
@@ -3607,6 +3741,22 @@ def main() -> int:
         "launches_calibration": {
             "launches": cal["launches"], "cuda_kernel_launches": cal["cuda_kernel_launches"],
             "buckets": cal["buckets"], "variant": cal["variant"]}})
+    # K4 (the JAX package's jnp AdamW; a pair of kernels here): timed at the
+    # training cell's leaf set; launches those of the timed train steps,
+    # each arch's (the update's; the norm's as many)
+    from repro_torch.kernels.adamw import kernel as k4_kernel
+    rows.append({
+        "name": "adamw", "route": "cuda",
+        "source": str(k4_kernel.SOURCE.relative_to(ROOT)),
+        "replaces": "src/repro/optim/adamw.py:52",
+        "launches": {a: t["adamw_launches"]["adamw_update"] for a, t in trained.items()},
+        "leaves": {a: t["leaves"] for a, t in trained.items()},
+        "ms": k4["ms"], "kernels_ms": k4["kernels_ms"], "step_ms": k4["step_ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"], "library_refused": k4["library_refused"],
+        "variant": "adamw_sumsq + adamw_update", "cuda_kernels_per_call": 2,
+        "shape": {"arch": k4["arch"], "layers": k4["layers"], "leaves": k4["leaves"],
+                  "params": k4["params"]}})
     print(json.dumps({"kernels": rows}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -38,10 +38,11 @@ def _find_nvcc(source: Path) -> str:
     return nvcc
 
 
-# flags that one source adds to NVCC_FLAGS, by its stem: the fluid scan
-# rounds every product before the sum it feeds, as PyTorch's separate
-# operations do, so it is built without fused multiply-adds
-SOURCE_FLAGS: Dict[str, tuple] = {"fluid_scan": ("-fmad=false",)}
+# flags that one source adds to NVCC_FLAGS, by its stem: the fluid scan and
+# AdamW round every product before the sum it feeds, as PyTorch's separate
+# operations do, so they are built without fused multiply-adds
+SOURCE_FLAGS: Dict[str, tuple] = {"fluid_scan": ("-fmad=false",),
+                                  "adamw": ("-fmad=false",)}
 
 
 def _flags(source: Path) -> tuple:

@@ -10,8 +10,9 @@ updates the params and the moments in place: at tinyllama-1.1b's size a
 second copy of the moments alone would cost 8.8 GB.  On a device mesh the
 params, grads and moments are DTensors of the same placements; the update
 runs on each rank's shards, and only the global norm communicates.  The
-update runs in the span ``optimizer``, its global norm in ``optimizer.norm``
-(``repro_torch.spans``).
+norm and the update of every leaf are K4's (``kernels/adamw``): one launch
+each on the card, the plain version on the CPU.  The update runs in the span
+``optimizer``, its global norm in ``optimizer.norm`` (``repro_torch.spans``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch import spans
+from repro_torch.kernels.adamw import ops
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.parallel.activations import is_dtensor
 
@@ -69,7 +71,7 @@ def _global_norm(tree) -> torch.Tensor:
     with spans.span("optimizer.norm"):
         if leaves and is_dtensor(leaves[0]):
             return torch.sqrt(_mesh_sum_of_squares(leaves))
-        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+        return ops.sum_of_squares(leaves)[1]
 
 
 def _mesh_sum_of_squares(leaves) -> torch.Tensor:
@@ -82,10 +84,10 @@ def _mesh_sum_of_squares(leaves) -> torch.Tensor:
             raise ValueError(f"a leaf with placements {x.placements}: reduce "
                              f"partial sums before the norm")
         axes = tuple(i for i, p in enumerate(x.placements) if isinstance(p, Shard))
-        local = torch.sum(torch.square(x.to_local().float()))
-        by_axes[axes] = local if axes not in by_axes else by_axes[axes] + local
+        by_axes.setdefault(axes, []).append(x.to_local())
     total = None
-    for axes, part in sorted(by_axes.items()):
+    for axes in sorted(by_axes):
+        part = ops.sum_of_squares(by_axes[axes])[0]
         for i in axes:
             dist.all_reduce(part, group=mesh.get_group(i))
         total = part if total is None else total + part
@@ -103,23 +105,15 @@ def adamw_update(cfg: AdamWConfig, params, grads, state) -> Tuple[Any, Dict]:
 
 def _update(cfg: AdamWConfig, params, grads, state) -> Tuple[Any, Dict]:
     step = state["step"] + 1
-    lr = cosine_lr(cfg, step)
+    t = step.float()
+    lr = cosine_lr(cfg, t)
     gnorm = _global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
 
-    b1t = 1.0 - cfg.b1 ** step.float()
-    b2t = 1.0 - cfg.b2 ** step.float()
+    b1t = 1.0 - cfg.b1 ** t
+    b2t = 1.0 - cfg.b2 ** t
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-        v.copy_(cfg.b2 * v + (1 - cfg.b2) * torch.square(g))
-        mh = m / b1t
-        vh = v / b2t
-        p32 = p.float()
-        p32 = p32 - lr * (mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p32)
-        p.copy_(p32.to(p.dtype))
-
+    leaves = []
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"])):
         if is_dtensor(p):
@@ -128,5 +122,7 @@ def _update(cfg: AdamWConfig, params, grads, state) -> Tuple[Any, Dict]:
                 raise ValueError(f"placements differ: param {p.placements}, "
                                  f"grad {g.placements}")
             p, g, m, v = (x.to_local() for x in (p, g, m, v))
-        upd(p, g, m, v)
+        leaves.append((p, g, m, v))
+    ops.adamw_update(*map(list, zip(*leaves)), scale=scale, lr=lr, b1t=b1t, b2t=b2t,
+                     b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
     return params, {"m": state["m"], "v": state["v"], "step": step}
